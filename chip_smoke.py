@@ -9,18 +9,29 @@ Phases, each printing its wall seconds:
 1. build: the CUDA kernels (one nvcc per source, started together, then
    linked), then the host proximity library, into
    glorie_slam_tpu_torch/_build;
-2. kernels: each kernel against its plain PyTorch version on the card, at
-   the tracking slice's shapes, with timings (CUDA events) and bounds;
-3. reference: the card's path against the CPU path (plain versions, the
+2. kernels: each of the five kernels against its plain PyTorch version on
+   the card, at the shapes its path gives it (the 40x80 grid of a 320x640
+   frame, 128 channels, 96 edges), with timings (CUDA events), bounds and
+   a library formulation's time;
+3. volume: the correlation-volume path (``CorrBlock`` through kernel E,
+   ``lookup_pyramid`` without slots and ``alt_corr_chunk`` through D)
+   and a 3-level feature pyramid (C) on the card, each held against the
+   tracker's 4-level feature-store lookup (A) on the same frames and
+   coordinates. Launch counts are zeroed before and read after: they are
+   the C, D and E launches of the kernels line;
+4. reference: the card's path against the CPU path (plain versions, the
    path the tests hold against the JAX package) on 48x64 input: two DSPO
    rounds from one identical state, held tightly, and whole 10-frame
    tracker runs, which must take the same path;
-4. pipeline: the tracking slice (bench.py's loop and config: motion filter
-   with lookahead, frontend DSPO rounds, loop closure, online BA every 12
-   keyframes) on a 320x640 synthetic circuit stream with a random-weight
-   bf16 net at full width, ending with save_video, whose read of the
-   full-resolution validity mask runs the depth filter. Kernel launch
-   counts are zeroed just before and read just after.
+5. pipeline: ``SLAM(cfg, stream).run()`` tracking-only, with bench.py's
+   tracking config (motion filter with lookahead, frontend DSPO rounds,
+   loop closure, online BA every 12 keyframes) and the final global BA,
+   on a 320x640 synthetic circuit stream with a random-weight bf16 net at
+   full width and cached mono-depth priors; then video.npz (whose
+   full-resolution validity mask runs the depth filter), the keyframe
+   ATE, the trajectory filler and the full ATE. Launch counts are zeroed
+   before and read after: they are the A and B launches of the kernels
+   line.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -37,6 +48,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
+FP32_FLOPS = 67e12               # H100 SXM float32 outside tensor cores
 # bench.py runs 60 frames; 40 keep the whole script well inside its time
 # limit while window=25 loop closure and ba_freq=12 online BA both fire
 PIPELINE_FRAMES = 40
@@ -76,52 +88,17 @@ def build_all():
 
 
 # ---------------------------------------------------------------------------
-# kernel A
+# shared inputs, bounds and library formulations
 # ---------------------------------------------------------------------------
 
-def library_lookup(f1, f2_levels, iis, jjs, coords):
-    """Kernel A's function from library calls: per-level correlation
-    volumes by torch.bmm of the gathered features (bf16, fp32 accumulate),
-    then the 8x8 window cells by torch.gather and the bilinear weights."""
+def edge_inputs(dev, N=16, E=96, h0=40, w0=80, seed=0):
+    """Random bf16 frame features (N, h0, w0, 128), edges iis/jjs (E,)
+    int32 and level-0 coords (E, h0*w0, 2): the pixel grid plus 3-pixel
+    noise, with NaN centres and far off-plane ones mixed in."""
     import torch
-    E, npix, _ = coords.shape
-    c = torch.nan_to_num(coords)
-    a = f1[iis.long()]
-    r = torch.arange(8, device=f1.device)
-    outs = []
-    for lvl, f2 in enumerate(f2_levels):
-        _, hl, wl, C = f2.shape
-        b = f2[jjs.long()].reshape(E, hl * wl, C)
-        vol = torch.bmm(a, b.transpose(1, 2))
-        pos = c / (2.0 ** lvl)
-        x0, y0 = torch.floor(pos[..., 0]), torch.floor(pos[..., 1])
-        fx, fy = pos[..., 0] - x0, pos[..., 1] - y0
-        gx = x0.long()[..., None] - 3 + r                     # (E, p, 8)
-        gy = y0.long()[..., None] - 3 + r
-        ok = (((gy >= 0) & (gy < hl))[..., :, None]
-              & ((gx >= 0) & (gx < wl))[..., None, :])
-        idx = (gy.clamp(0, hl - 1)[..., :, None] * wl
-               + gx.clamp(0, wl - 1)[..., None, :])
-        cells = vol.gather(2, idx.reshape(E, npix, 64)).float()
-        cells = (cells.reshape(E, npix, 8, 8) * ok) / 16.0
-        fx, fy = fx[..., None, None], fy[..., None, None]
-        win = ((1 - fy) * ((1 - fx) * cells[..., :7, :7]
-                           + fx * cells[..., :7, 1:])
-               + fy * ((1 - fx) * cells[..., 1:, :7]
-                       + fx * cells[..., 1:, 1:]))          # [b][a]
-        outs.append(win.transpose(-1, -2).reshape(E, npix, 49))
-    return torch.cat(outs, -1).to(torch.bfloat16)
-
-
-def check_kernel_a(dev, N=16, E=96, h0=40, w0=80):
-    import torch
-    from glorie_slam_tpu_torch.ops import corr, cuda_corr
-
-    g = torch.Generator(device="cpu").manual_seed(0)
+    g = torch.Generator(device="cpu").manual_seed(seed)
     npix = h0 * w0
     fm = torch.randn((N, h0, w0, 128), generator=g).to(dev, torch.bfloat16)
-    pyr = corr.prep_feat_pyramid(fm)
-    f2 = (pyr[0].reshape(N, h0, w0, 128),) + tuple(pyr[1:])
     iis = torch.randint(0, N, (E,), generator=g, dtype=torch.int32).to(dev)
     jjs = torch.randint(0, N, (E,), generator=g, dtype=torch.int32).to(dev)
     yy, xx = torch.meshgrid(torch.arange(h0), torch.arange(w0),
@@ -131,19 +108,137 @@ def check_kernel_a(dev, N=16, E=96, h0=40, w0=80):
     coords[:, ::97] = float("nan")                       # NaN centres
     coords[:, 5::53] += 60.0                             # off the plane
     coords[:, 7::61] -= 45.0
-    coords = coords.to(dev).contiguous()
+    return fm, iis, jjs, coords.to(dev).contiguous()
+
+
+def window_cells(coords, hl, wl):
+    """(x, y) indices (E, npix, 8) of the 8x8 cells each window touches,
+    and their in-plane masks; coords in level units (NaN -> 0)."""
+    import torch
+    c = torch.nan_to_num(coords)
+    r = torch.arange(8, device=coords.device)
+    gx = torch.floor(c[..., 0]).long()[..., None] - 3 + r
+    gy = torch.floor(c[..., 1]).long()[..., None] - 3 + r
+    return gx, gy, (gx >= 0) & (gx < wl), (gy >= 0) & (gy < hl)
+
+
+def in_plane_cells(coords, hl, wl):
+    """How many (edge, pixel, cell) window reads land inside the plane."""
+    _, _, okx, oky = window_cells(coords, hl, wl)
+    return int(okx.sum(-1).mul(oky.sum(-1)).sum())
+
+
+def bound(nbytes, flops, flop_rate):
+    """(least ms, what sets it) at the H100's memory rate and ``flop_rate``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bilinear_window(cells, coords):
+    """cells (E, npix, 8, 8) [y][x] float, coords level units -> the 7x7
+    bilinear window (E, npix, 49), channel a*7 + b (a: x offset)."""
+    import torch
+    E, npix = cells.shape[:2]
+    c = torch.nan_to_num(coords)
+    fx = (c[..., 0] - torch.floor(c[..., 0]))[..., None, None]
+    fy = (c[..., 1] - torch.floor(c[..., 1]))[..., None, None]
+    win = ((1 - fy) * ((1 - fx) * cells[..., :7, :7] + fx * cells[..., :7, 1:])
+           + fy * ((1 - fx) * cells[..., 1:, :7]
+                   + fx * cells[..., 1:, 1:]))               # [b][a]
+    return win.transpose(-1, -2).reshape(E, npix, 49)
+
+
+def library_level(f1, f2, iis, jjs, coords):
+    """One level's lookup from library calls: the correlation volume by
+    torch.bmm of the gathered bf16 features (fp32 accumulate), then the
+    8x8 window cells by torch.gather and the bilinear weights. f2
+    (N, hl, wl, C); coords in level units. Returns (E, npix, 49) f32."""
+    import torch
+    E, npix, _ = coords.shape
+    _, hl, wl, C = f2.shape
+    a = f1[iis.long()]
+    b = f2[jjs.long()].reshape(E, hl * wl, C)
+    vol = torch.bmm(a, b.transpose(1, 2))
+    gx, gy, okx, oky = window_cells(coords, hl, wl)
+    idx = (gy.clamp(0, hl - 1)[..., :, None] * wl
+           + gx.clamp(0, wl - 1)[..., None, :])
+    cells = vol.gather(2, idx.reshape(E, npix, 64)).float()
+    cells = cells.reshape(E, npix, 8, 8) * (oky[..., :, None]
+                                            & okx[..., None, :]) / 16.0
+    return bilinear_window(cells, coords)
+
+
+def library_lookup(f1, f2_levels, iis, jjs, coords):
+    """Kernel A's function from library calls: ``library_level`` per
+    level, rounded to bf16."""
+    import torch
+    return torch.cat([library_level(f1, f2, iis, jjs, coords / 2.0 ** lvl)
+                      for lvl, f2 in enumerate(f2_levels)],
+                     -1).to(torch.bfloat16)
+
+
+def library_plane(planes, slots, coords):
+    """Kernels D/E's function from library calls: the 8x8 window cells of
+    plane row slots[e] (row e without slots) by one flat index gather,
+    then the bilinear weights. Returns (E, npix, 49) f32."""
+    import torch
+    E, npix, _ = coords.shape
+    _, hl, wl, _ = planes.shape
+    rows = (torch.arange(E, device=planes.device) if slots is None
+            else slots.long())
+    gx, gy, okx, oky = window_cells(coords, hl, wl)
+    cell = (gy.clamp(0, hl - 1)[..., :, None] * wl
+            + gx.clamp(0, wl - 1)[..., None, :])           # (E, p, 8, 8)
+    pix = torch.arange(npix, device=planes.device)[None, :, None, None]
+    idx = (rows[:, None, None, None] * (hl * wl) + cell) * npix + pix
+    cells = planes.reshape(-1)[idx].float() * (oky[..., :, None]
+                                               & okx[..., None, :])
+    return bilinear_window(cells, coords)
+
+
+def kernel_result(kernel, out, ref, ms, plain_ms, lib_ms, bound_ms_by,
+                  **extra):
+    return dict(name=kernel.name, route="cuda", source=kernel.source,
+                replaces=kernel.replaces,
+                max_abs_err=float((out.float() - ref.float()).abs().max()),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms_by[0],
+                bound_by=bound_ms_by[1], library_ms=lib_ms, **extra)
+
+
+def check_close(name, out, ref, atol, rtol):
+    """Raise unless |out - ref| <= atol + rtol * |ref| everywhere and out
+    is finite; returns the tolerance as text."""
+    import torch
+    d = (out.float() - ref.float()).abs()
+    tol = atol + rtol * ref.float().abs()
+    if not bool((d <= tol).all()):
+        raise AssertionError(
+            f"{name}: max |d| {d.max().item():.4g}, "
+            f"{(d > tol).sum().item()} values over {atol} + {rtol}|ref|")
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    return f"{atol} + {rtol}|ref|"
+
+
+# ---------------------------------------------------------------------------
+# kernels A and C: correlation lookups from feature stores
+# ---------------------------------------------------------------------------
+
+def check_kernel_a(dev, inputs):
+    import torch
+    from glorie_slam_tpu_torch.ops import corr, cuda_corr
+
+    fm, iis, jjs, coords = inputs
+    N, h0, w0, _ = fm.shape
+    E, npix, _ = coords.shape
+    pyr = corr.prep_feat_pyramid(fm)
+    f2 = (pyr[0].reshape(N, h0, w0, 128),) + tuple(pyr[1:])
 
     out = cuda_corr.lookup_pyramid(pyr[0], f2, iis, jjs, coords)
     torch.cuda.synchronize()
     ref = cuda_corr.lookup_pyramid_plain(pyr[0], f2, iis, jjs, coords)
-    d = (out.float() - ref.float()).abs()
-    tol = 1e-2 + 8e-3 * ref.float().abs()                # ~2 bf16 ulps
-    if not bool((d <= tol).all()):
-        raise AssertionError(
-            f"lookup_pyramid disagrees with its plain version: "
-            f"max |d| {d.max().item():.4g}, {(d > tol).sum().item()} over")
-    if not bool(torch.isfinite(out.float()).all()):
-        raise AssertionError("lookup_pyramid: non-finite output")
+    tol = check_close("lookup_pyramid", out, ref, 1e-2, 8e-3)  # ~2 ulps
 
     ms = cuda_ms(lambda: cuda_corr.lookup_pyramid(pyr[0], f2, iis, jjs,
                                                   coords), 20)
@@ -152,31 +247,119 @@ def check_kernel_a(dev, N=16, E=96, h0=40, w0=80):
     lib_ms = cuda_ms(lambda: library_lookup(pyr[0], f2, iis, jjs, coords),
                      3, warmup=1)
 
-    # bound: bytes of each input read once + the output written once;
+    # bytes: each store read once, coords, the bf16 output written once;
     # operations: the 128-term dot products of in-plane window cells only
     nbytes = (sum(t.numel() * t.element_size() for t in pyr)
               + coords.numel() * 4 + 2 * E * 4 + out.numel() * 2)
-    cells = 0
-    c = torch.nan_to_num(coords)
-    r = torch.arange(8, device=dev)
-    for lvl, lv in enumerate(f2):
-        hl, wl = lv.shape[1], lv.shape[2]
-        pos = c / (2.0 ** lvl)
-        gx = torch.floor(pos[..., 0]).long()[..., None] - 3 + r
-        gy = torch.floor(pos[..., 1]).long()[..., None] - 3 + r
-        cells += int(((gx >= 0) & (gx < wl)).sum(-1).mul(
-            ((gy >= 0) & (gy < hl)).sum(-1)).sum())
-    flops = 2 * 128 * cells
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    return dict(
-        name=cuda_corr.LOOKUP_PYRAMID.name, route="cuda",
-        source=cuda_corr.LOOKUP_PYRAMID.source,
-        replaces=cuda_corr.LOOKUP_PYRAMID.replaces,
-        max_abs_err=float(d.max()), ms=ms, plain_ms=plain_ms,
-        bound_ms=1e3 * max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=lib_ms,
+    cells = sum(in_plane_cells(coords / 2.0 ** lvl, lv.shape[1],
+                               lv.shape[2]) for lvl, lv in enumerate(f2))
+    return kernel_result(
+        cuda_corr.LOOKUP_PYRAMID, out, ref, ms, plain_ms, lib_ms,
+        bound(nbytes, 2 * 128 * cells, BF16_FLOPS),
+        tolerance=tol,
         shapes=f"E={E} N={N} {h0}x{w0} C=128 -> ({E},{npix},196) bf16")
+
+
+def check_kernel_c(dev, inputs):
+    """Kernel C at level 0 (the 40x80 store) and level 3 (5x10); the
+    kernels line carries level 0's numbers."""
+    import torch
+    from glorie_slam_tpu_torch.ops import corr, cuda_corr
+
+    fm, iis, jjs, coords = inputs
+    N, h0, w0, _ = fm.shape
+    E, npix, _ = coords.shape
+    pyr = corr.prep_feat_pyramid(fm)
+    res = {}
+    for lvl in (3, 0):
+        hl, wl = (h0, w0) if lvl == 0 else pyr[lvl].shape[1:3]
+        f2 = pyr[lvl].reshape(N, hl * wl, 128).contiguous()
+        cl = coords / 2.0 ** lvl
+        args = (pyr[0], f2, iis, jjs, cl, hl, wl)
+        out = cuda_corr.lookup_level(*args)
+        torch.cuda.synchronize()
+        ref = cuda_corr.lookup_level_plain(*args)
+        # float32 sums of the same bf16 products in another order
+        tol = check_close(f"lookup_level (level {lvl})", out, ref, 1e-4,
+                          1e-4)
+        ms = cuda_ms(lambda: cuda_corr.lookup_level(*args), 20)
+        plain_ms = cuda_ms(lambda: cuda_corr.lookup_level_plain(*args), 3,
+                           warmup=1)
+        lib_ms = cuda_ms(lambda: library_level(
+            pyr[0], f2.reshape(N, hl, wl, 128), iis, jjs, cl), 3, warmup=1)
+        # at level 0, f2 is f1's store itself: it is read once
+        store_el = pyr[0].numel() + (f2.numel() if lvl else 0)
+        nbytes = (store_el * 2 + coords.numel() * 4 + 2 * E * 4
+                  + out.numel() * 4)
+        res[lvl] = kernel_result(
+            cuda_corr.LOOKUP_LEVEL, out, ref, ms, plain_ms, lib_ms,
+            bound(nbytes, 2 * 128 * in_plane_cells(cl, hl, wl), BF16_FLOPS),
+            tolerance=tol, shapes=f"level {lvl}: E={E} N={N} f2 {hl}x{wl} C=128 -> "
+                   f"({E},{npix},49) f32")
+    res[0]["level3"] = {k: res[3][k] for k in (
+        "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "shapes")}
+    return res[0]
+
+
+# ---------------------------------------------------------------------------
+# kernels D and E: lookups over precomputed correlation planes
+# ---------------------------------------------------------------------------
+
+def check_kernels_de(dev, inputs):
+    """D on the level-0 pixel-minor volume of the 96 edges (96, 40, 80,
+    3200) bf16, about 2 GB; E on the same tensor as a store at the
+    bucketed capacity (96) read through a shuffled ``slots``."""
+    import torch
+    from glorie_slam_tpu_torch.ops import corr, cuda_corr
+    from glorie_slam_tpu_torch.utils.buckets import bucket
+
+    fm, iis, jjs, coords = inputs
+    E, npix, _ = coords.shape
+    fcf = fm.permute(0, 3, 1, 2)
+    store = corr.all_pairs_corr_lanes(fcf[iis.long()], fcf[jjs.long()])
+    if store.shape[0] != bucket(E):
+        raise AssertionError("store is not at the bucketed capacity")
+    _, hl, wl, _ = store.shape
+    g = torch.Generator(device="cpu").manual_seed(4)
+    slots = torch.randperm(E, generator=g).to(dev, torch.int32)
+    cells = in_plane_cells(coords, hl, wl)
+    results = []
+    for kernel, sl in ((cuda_corr.LOOKUP_PLANE, None),
+                       (cuda_corr.LOOKUP_PLANE_SLOTS, slots)):
+        if sl is None:
+            def run():
+                return cuda_corr.lookup_plane(store, coords)
+
+            def plain():
+                return cuda_corr.lookup_plane_plain(store, coords)
+        else:
+            def run():
+                return cuda_corr.lookup_plane_slots(store, sl, coords)
+
+            def plain():
+                return cuda_corr.lookup_plane_slots_plain(store, sl, coords)
+        out = run()
+        torch.cuda.synchronize()
+        ref = plain()
+        # float32 sums of the same bf16 cells in another order
+        tol = check_close(kernel.name, out, ref, 1e-4, 1e-4)
+        ms = cuda_ms(run, 20)
+        plain_ms = cuda_ms(plain, 3, warmup=1)
+        lib_ms = cuda_ms(lambda: library_plane(store, sl, coords), 3,
+                         warmup=1)
+        # bytes: the in-plane cells the windows need (2 B each), coords,
+        # slots, the f32 output; operations: 4 corner multiply-adds per
+        # output value, float32
+        nbytes = (cells * 2 + coords.numel() * 4 + E * 4
+                  + out.numel() * 4)
+        results.append(kernel_result(
+            kernel, out, ref, ms, plain_ms, lib_ms,
+            bound(nbytes, 8 * out.numel(), FP32_FLOPS), tolerance=tol,
+            shapes=f"planes ({E},{hl},{wl},{npix}) bf16"
+                   + ("" if sl is None else ", shuffled slots")
+                   + f" -> ({E},{npix},49) f32"))
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -246,10 +429,76 @@ def check_kernel_b(dev, N=16, M=8, ht=320, wd=640):
 
 
 # ---------------------------------------------------------------------------
+# the correlation-volume path against the feature-store lookup
+# ---------------------------------------------------------------------------
+
+def volume_check(dev, inputs, alt_edges=64):
+    """CorrBlock (E), lookup_pyramid without slots (D), alt_corr_chunk (D)
+    and a 3-level feature pyramid (C) against kernel A's 4-level lookup on
+    the same frames and coordinates (the identity tests/test_ops.py:261
+    asserts for the JAX package).
+
+    Tolerances: the volume path rounds the fp32 volume to bf16 and pools
+    the rounded values; kernel A rounds its output to bf16 from pooled
+    bf16 features. Each side is within about one bf16 ulp of the exact
+    value, so the two are held to two: 0.02 + 0.016|ref|. C's float32
+    output against A's bf16: one rounding, 0.01 + 0.008|ref|."""
+    import torch
+    from glorie_slam_tpu_torch.ops import corr, cuda_corr
+
+    fm, iis, jjs, coords = inputs
+    N, h0, w0, C = fm.shape
+    E = iis.shape[0]
+    c4 = coords.reshape(E, h0, w0, 2)
+    ref = corr.lookup_pyramid_feats(corr.prep_feat_pyramid(fm), iis, jjs,
+                                    c4)
+    fcf = fm.permute(0, 3, 1, 2)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    perm = torch.randperm(E, generator=g).numpy()
+    perm_d = torch.as_tensor(perm, device=dev)
+
+    for k in cuda_corr.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    block = corr.CorrBlock(fcf[iis.long()], fcf[jjs.long()])
+    block = block[perm]                       # compact order != slot order
+    out_e = block(c4[perm_d])
+    out_d = corr.lookup_pyramid(block.pyramid, c4)
+    out_alt = corr.alt_corr_chunk(fcf, c4[:alt_edges], iis[:alt_edges],
+                                  jjs[:alt_edges])
+    out_c = corr.lookup_pyramid_feats(corr.prep_feat_pyramid(fm, 3), iis,
+                                      jjs, c4)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda_corr.KERNELS}
+
+    errs = {}
+    for name, out, want, atol, rtol in (
+            ("CorrBlock (E)", out_e, ref[perm_d], 2e-2, 1.6e-2),
+            ("lookup_pyramid (D)", out_d, ref, 2e-2, 1.6e-2),
+            ("alt_corr_chunk (D)", out_alt, ref[:alt_edges], 2e-2, 1.6e-2),
+            ("3-level feature lookup (C)", out_c, ref[..., :147], 1e-2,
+             8e-3)):
+        errs[name] = dict(
+            max_abs_err=float((out.float() - want.float()).abs().max()),
+            tolerance=check_close(name, out, want, atol, rtol))
+    for name in ("lookup_level", "lookup_plane", "lookup_plane_slots"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "volume path")
+    pyr_bytes = sum(p.numel() * p.element_size() for p in block.pyramid)
+    return dict(max_abs_err_vs_a=errs, launches=launches,
+                seconds=seconds, corr_block_bytes=pyr_bytes,
+                capacity=block.capacity,
+                shapes=f"E={E} N={N} {h0}x{w0} C={C}, alt chunk "
+                       f"{alt_edges} edges")
+
+
+# ---------------------------------------------------------------------------
 # tracker runs
 # ---------------------------------------------------------------------------
 
-def run_tracker(device, H, W, n_frames, dtype, cfg_fn, on_frame=None):
+def run_tracker(device, H, W, n_frames, dtype, cfg_fn):
     import torch
     from glorie_slam_tpu_torch.core.depth_video import DepthVideo
     from glorie_slam_tpu_torch.nets.tracker_net import TrackerNet
@@ -270,8 +519,6 @@ def run_tracker(device, H, W, n_frames, dtype, cfg_fn, on_frame=None):
         if video.device.type == "cuda":
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        if on_frame is not None:
-            on_frame(i, times[-1], video)
     return tracker, video, times
 
 
@@ -366,37 +613,75 @@ def reference_check():
     return dict(step=step, run=run)
 
 
-def pipeline(n_frames, device="cuda", H=320, W=640):
+def pipeline(n_frames, H=320, W=640):
+    """``SLAM.run`` tracking-only at 320x640 (see the module doc)."""
     import numpy as np
     import torch
     from glorie_slam_tpu_torch import build
     from glorie_slam_tpu_torch.ops import cuda_corr
-    from glorie_slam_tpu_torch.utils.synthetic import bench_cfg
+    from glorie_slam_tpu_torch.slam import SLAM
+    from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
+                                                       bench_cfg)
 
-    for k in cuda_corr.KERNELS:
-        k.launches = 0
-    if torch.device(device).type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-
-    def on_frame(i, dt, video):
-        print(f"[pipeline] frame {i}: {dt:.3f} s, keyframes "
-              f"{video.counter}", flush=True)
-
-    tracker, video, times = run_tracker(
-        device, H, W, n_frames, torch.bfloat16,
-        lambda: bench_cfg(H=H, W=W, buffer=400), on_frame=on_frame)
-    t_save = time.perf_counter()
+    stream = SyntheticStream(n_frames=n_frames, H=H, W=W, seed=3,
+                             motion_scale=0.02, trajectory="circuit")
     os.makedirs(build.BUILD_ROOT, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
-        path = os.path.join(tmp, "video.npz")
-        video.save_video(path)
-        if video.device.type == "cuda":
+        cfg = bench_cfg(H=H, W=W, buffer=400, out=tmp)
+        cfg["tracking"]["backend"]["final_ba"] = True
+        cfg["mono_prior"] = {"predict_online": False}
+        priors = os.path.join(tmp, f"{cfg['scene']}_priors", "depths")
+        os.makedirs(priors)
+        for i, depth in enumerate(stream.depths):
+            np.save(os.path.join(priors, f"{i:05d}.npy"), depth)
+
+        slam = SLAM(cfg, stream)
+        tracker, video = slam.tracker, slam.video
+        times = []
+        step = tracker.step
+
+        def timed_step(i, s):
+            t0 = time.perf_counter()
+            step(i, s)
             torch.cuda.synchronize()
-        save_s = time.perf_counter() - t_save
-        saved = dict(np.load(path))
-    launches = {k.name: k.launches for k in cuda_corr.KERNELS}
-    peak = (torch.cuda.max_memory_allocated()
-            if video.device.type == "cuda" else None)
+            times.append(time.perf_counter() - t0)
+            print(f"[pipeline] frame {i}: {times[-1]:.3f} s, keyframes "
+                  f"{video.counter}", flush=True)
+
+        tracker.step = timed_step
+        filler = slam.traj_filler
+        filler_launches = {}
+
+        def counted_filler(s):
+            before = cuda_corr.LOOKUP_PYRAMID.launches
+            out = filler(s)
+            filler_launches["lookup_pyramid"] = (
+                cuda_corr.LOOKUP_PYRAMID.launches - before)
+            return out
+
+        slam.traj_filler = counted_filler
+
+        for k in cuda_corr.KERNELS:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        slam.run()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in cuda_corr.KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+
+        out = slam.output
+        saved = dict(np.load(os.path.join(out, "video.npz")))
+        ates = {}
+        for label in ("kf_traj", "full_traj"):
+            with open(os.path.join(out, "traj",
+                                   f"metrics_{label}.txt")) as f:
+                first = f.readline()
+            if not first.startswith("ATE-RMSE [m]: "):
+                raise AssertionError(f"metrics_{label}.txt: {first!r}")
+            ates[label] = float(first.split(":")[1])
+        full = np.load(os.path.join(out, "traj", "full_traj_w2c.npy"))
+        with open(os.path.join(out, "logs", "phase_times.json")) as f:
+            phases = json.load(f)
 
     n = video.counter
     if n != n_frames:
@@ -407,21 +692,34 @@ def pipeline(n_frames, device="cuda", H=320, W=640):
     for key in ("poses", "depths", "timestamps"):
         if not np.isfinite(saved[key]).all():
             raise AssertionError(f"saved {key} are not finite")
+    if full.shape != (n_frames, 7) or not np.isfinite(full).all():
+        raise AssertionError("full trajectory has the wrong shape or is "
+                             "not finite")
+    if not all(np.isfinite(v) for v in ates.values()):
+        raise AssertionError(f"ATE not finite: {ates}")
     if tracker.frontend.last_loop_t <= 0 or tracker.prev_ba_idx <= 0:
         raise AssertionError("loop closure or online BA did not run")
-    for name, count in launches.items():
-        if count <= 0 and video.device.type == "cuda":
+    for name in ("lookup_pyramid", "depth_agree"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
+    if filler_launches.get("lookup_pyramid", 0) <= 0:
+        raise AssertionError("the trajectory filler launched no lookup")
+    ph = phases["phases"]
     steady = times[-20:]
     return dict(
         frames=n, keyframes=n, launches=launches,
+        filler_launches=filler_launches,
         keyframes_per_s=len(steady) / sum(steady),
-        steady_frame_ms=[round(1e3 * t, 2) for t in steady],
-        first_frame_s=times[0], save_video_s=save_s,
+        steady_frame_ms=[1e3 * t for t in steady],
+        first_frame_s=times[0], save_video_s=ph["save_video"]["total_s"],
+        final_ba_s=ph["final_ba"]["total_s"],
+        trajectory_filler_s=ph["trajectory_filler"]["total_s"],
+        eval_traj_s=ph["eval_traj"]["total_s"],
+        kf_ate_rmse_m=ates["kf_traj"], full_ate_rmse_m=ates["full_traj"],
         loop_closure_at=tracker.frontend.last_loop_t,
         online_ba_at=tracker.prev_ba_idx,
-        phases=tracker.timer.summary(), peak_memory_bytes=peak,
+        phases=phases, peak_memory_bytes=peak,
         valid_mask_fraction=float(saved["valid_depth_masks"].mean()))
 
 
@@ -444,10 +742,20 @@ def main():
     phase("build", t0)
 
     t0 = time.perf_counter()
-    results = [check_kernel_a(dev), check_kernel_b(dev)]
+    inputs = edge_inputs(dev)
+    results = [check_kernel_a(dev, inputs), check_kernel_b(dev),
+               check_kernel_c(dev, inputs), *check_kernels_de(dev, inputs)]
     for r in results:
         print("[kernel] " + json.dumps(r), flush=True)
+    torch.cuda.empty_cache()
     phase("kernels", t0)
+
+    t0 = time.perf_counter()
+    vol = volume_check(dev, inputs)
+    print("[volume] " + json.dumps(vol), flush=True)
+    del inputs
+    torch.cuda.empty_cache()
+    phase("volume", t0)
 
     t0 = time.perf_counter()
     ref = reference_check()
@@ -459,11 +767,17 @@ def main():
     print("[pipeline] " + json.dumps(pipe), flush=True)
     phase("pipeline", t0)
 
+    # A and B launch on the tracking path (the pipeline); C, D and E on
+    # the volume path
+    path_launches = {**pipe["launches"],
+                     **{k: vol["launches"][k] for k in (
+                         "lookup_level", "lookup_plane",
+                         "lookup_plane_slots")}}
     kernels = []
     for r in results:
         kernels.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
-            "replaces": r["replaces"], "launches": pipe["launches"][r["name"]],
+            "replaces": r["replaces"], "launches": path_launches[r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -24,7 +24,7 @@ import threading
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_ROOT = os.path.join(PKG_DIR, "_build")
 CSRC = os.path.join(PKG_DIR, "csrc")
-CUDA_SOURCES = ("lookup_pyramid.cu", "depth_agree.cu")
+CUDA_SOURCES = ("lookup_pyramid.cu", "depth_agree.cu", "lookup_plane.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")

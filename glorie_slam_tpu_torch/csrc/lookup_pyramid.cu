@@ -1,28 +1,34 @@
-// Kernel A: 4-level windowed correlation lookup computed from features.
+// Kernel A: 4-level windowed correlation lookup computed from features,
+// and kernel C: the same lookup for one level.
 //
-// Replaces the TPU kernel glorie_slam_tpu/ops/pallas_corr.py
-// lookup_feats_pyramid_pallas (:363, body _lookup_feats_pyr_kernel :299).
+// Kernel A replaces the TPU kernel glorie_slam_tpu/ops/pallas_corr.py
+// lookup_feats_pyramid_pallas (:363, body _lookup_feats_pyr_kernel :299);
+// kernel C replaces lookup_feats_pallas (:251, body _lookup_feats_kernel
+// :192), which runs once per level when a feature pyramid does not have 4
+// levels. Both are one template, lookup_feats_kernel<L, OutT>: kernel A is
+// L = 4 with bf16 output, kernel C is L = 1 with float32 output and its
+// coordinates already in level units (the caller divided them by 2^l).
 //
-// For edge e, source pixel p and pyramid level l (level coordinates
+// For edge e, source pixel p and level l (level coordinates
 // x = cx / 2^l, y = cy / 2^l):
 //   corr(q) = <f1[iis[e], p], f2_l[jjs[e], q]> / 16       (fp32 accumulate)
 //   out[e, p, l*49 + a*7 + b] = sum over the 2x2 bilinear corners of the
 //       sample (x - 3 + a, y - 3 + b) of hat weight * corr(corner),
-// with out-of-plane corners contributing zero. Output is bf16.
+// with out-of-plane corners contributing zero.
 //
-// The TPU kernel computed whole correlation planes (or a band of rows)
-// on its matrix unit and reduced them with hat matrices. Here only the
+// The TPU kernels computed whole correlation planes (or a band of rows)
+// on the matrix unit and reduced them with hat matrices. Here only the
 // correlations a window can touch are computed: the 7x7 window plus its
 // bilinear neighbour spans 8x8 target cells per level, so a pixel needs
-// 4 x 64 dot products of length 128. One block takes TP pixels of one
+// L x 64 dot products of length 128. One block takes TP pixels of one
 // edge: it stages their f1 rows in shared memory, one thread per
 // (pixel, cell) computes a dot product against the cell's f2 row, and
 // TP*49 threads then form the window outputs.
 //
-// What bounds it on the card: the least time for this work is set by bytes
-// (the (E, npix, 196) bf16 output is most of them); this version is limited
-// well above that by its 4*64*128 MACs per (edge, pixel) on CUDA cores (the
-// f2 rows a pixel reads overlap its neighbours' and stay in L1/L2).
+// What bounds them on the card: the least time for this work is set by
+// bytes (the output is most of them); this version is limited well above
+// that by its 64*128 MACs per (edge, pixel, level) on CUDA cores (the f2
+// rows a pixel reads overlap its neighbours' and stay in L1/L2).
 // Tensor-core (mma/wgmma) tiles come later.
 
 #include <cuda_bf16.h>
@@ -38,12 +44,12 @@ constexpr int kSide = 8;     // target cells a window touches per axis
 constexpr int kCells = kSide * kSide;
 constexpr int kTP = 4;       // pixels per block
 constexpr int kThreads = kTP * kCells;
-constexpr int kLevels = 4;
 
+template <int L>
 struct Levels {
-  const __nv_bfloat16* f2[kLevels];
-  int h[kLevels];
-  int w[kLevels];
+  const __nv_bfloat16* f2[L];
+  int h[L];
+  int w[L];
 };
 
 __device__ __forceinline__ float clean(float v, float lo, float hi) {
@@ -53,12 +59,19 @@ __device__ __forceinline__ float clean(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
+__device__ __forceinline__ void put(__nv_bfloat16* dst, float v) {
+  *dst = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ void put(float* dst, float v) { *dst = v; }
+
+template <int L, typename OutT>
 __global__ void __launch_bounds__(kThreads)
-lookup_pyramid_kernel(const __nv_bfloat16* __restrict__ f1, Levels lv,
-                      const int* __restrict__ iis,
-                      const int* __restrict__ jjs,
-                      const float* __restrict__ coords,
-                      __nv_bfloat16* __restrict__ out, int npix) {
+lookup_feats_kernel(const __nv_bfloat16* __restrict__ f1, Levels<L> lv,
+                    const int* __restrict__ iis,
+                    const int* __restrict__ jjs,
+                    const float* __restrict__ coords,
+                    OutT* __restrict__ out, int npix) {
   __shared__ __align__(16) float f1s[kTP][kC];
   __shared__ float corr[kTP][kCells];
   __shared__ float cxy[kTP][2];
@@ -87,7 +100,7 @@ lookup_pyramid_kernel(const __nv_bfloat16* __restrict__ f1, Levels lv,
   const int r = cell / kSide, c = cell % kSide;
   const bool pix_ok = p0 + pp < npix;
 
-  for (int l = 0; l < kLevels; ++l) {
+  for (int l = 0; l < L; ++l) {
     const float inv = 1.0f / (float)(1 << l);
     const int h = lv.h[l], w = lv.w[l];
     {
@@ -131,8 +144,8 @@ lookup_pyramid_kernel(const __nv_bfloat16* __restrict__ f1, Levels lv,
                            + fx * cr[b * kSide + a + 1])
             + fy * ((1.0f - fx) * cr[(b + 1) * kSide + a]
                     + fx * cr[(b + 1) * kSide + a + 1]);
-        out[((size_t)e * npix + p) * (kLevels * kRD * kRD)
-            + l * kRD * kRD + s] = __float2bfloat16(v);
+        put(out + ((size_t)e * npix + p) * (L * kRD * kRD)
+            + l * kRD * kRD + s, v);
       }
     }
     __syncthreads();
@@ -147,7 +160,7 @@ extern "C" int glorie_lookup_pyramid(
     int h3, int w3, const void* iis, const void* jjs, const void* coords,
     void* out, int E, int npix, void* stream) {
   if (E <= 0 || npix <= 0) return 0;
-  Levels lv;
+  Levels<4> lv;
   lv.f2[0] = static_cast<const __nv_bfloat16*>(f2_0);
   lv.f2[1] = static_cast<const __nv_bfloat16*>(f2_1);
   lv.f2[2] = static_cast<const __nv_bfloat16*>(f2_2);
@@ -155,11 +168,31 @@ extern "C" int glorie_lookup_pyramid(
   lv.h[0] = h0; lv.w[0] = w0; lv.h[1] = h1; lv.w[1] = w1;
   lv.h[2] = h2; lv.w[2] = w2; lv.h[3] = h3; lv.w[3] = w3;
   dim3 grid((npix + kTP - 1) / kTP, E);
-  lookup_pyramid_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  lookup_feats_kernel<4, __nv_bfloat16><<<grid, kThreads, 0,
+                                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(f1), lv,
       static_cast<const int*>(iis), static_cast<const int*>(jjs),
       static_cast<const float*>(coords),
       static_cast<__nv_bfloat16*>(out), npix);
+  return (int)cudaGetLastError();
+}
+
+// Kernel C: f2 is the level's (N, hl*wl, 128) store, coords (E, npix, 2)
+// are in level units, out is (E, npix, 49) float32.
+extern "C" int glorie_lookup_level(
+    const void* f1, const void* f2, int hl, int wl, const void* iis,
+    const void* jjs, const void* coords, void* out, int E, int npix,
+    void* stream) {
+  if (E <= 0 || npix <= 0) return 0;
+  Levels<1> lv;
+  lv.f2[0] = static_cast<const __nv_bfloat16*>(f2);
+  lv.h[0] = hl;
+  lv.w[0] = wl;
+  dim3 grid((npix + kTP - 1) / kTP, E);
+  lookup_feats_kernel<1, float><<<grid, kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(f1), lv,
+      static_cast<const int*>(iis), static_cast<const int*>(jjs),
+      static_cast<const float*>(coords), static_cast<float*>(out), npix);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-"""The tracking path's CUDA kernels, each beside its plain PyTorch version.
+"""The port's CUDA kernels, each beside its plain PyTorch version.
 
-Counterpart of ``glorie_slam_tpu/ops/pallas_corr.py``. Two kernels:
+Counterpart of ``glorie_slam_tpu/ops/pallas_corr.py``. Five kernels:
 
 * ``lookup_pyramid`` (kernel A, ``csrc/lookup_pyramid.cu``) replaces
   ``lookup_feats_pyramid_pallas`` (pallas_corr.py:363, pallas_call :412):
@@ -11,12 +11,23 @@ Counterpart of ``glorie_slam_tpu/ops/pallas_corr.py``. Two kernels:
 * ``depth_agree`` (kernel B, ``csrc/depth_agree.cu``) replaces
   ``depth_agree_pallas`` (pallas_corr.py:644, pallas_call :678): the
   4-corner multiview depth-agreement test. Bound on the card: bytes.
+* ``lookup_level`` (kernel C, ``csrc/lookup_pyramid.cu``, kernel A's
+  template at one level) replaces ``lookup_feats_pallas`` (pallas_corr.py
+  :251, pallas_call :287): one level's 7x7 window from feature stores,
+  float32 output, for feature pyramids without 4 levels.
+* ``lookup_plane`` (kernel D, ``csrc/lookup_plane.cu``) replaces
+  ``lookup_pallas`` (pallas_corr.py:153, pallas_call :174): the 7x7 window
+  over precomputed pixel-minor correlation planes (the volume path).
+* ``lookup_plane_slots`` (kernel E, the same source with a slot read)
+  replaces ``lookup_pallas_slots`` (pallas_corr.py:477, pallas_call :507):
+  D with plane row ``slots[e]`` of a fixed-capacity store.
+Bound on the card for C, D and E: bytes.
 
 Each wrapper takes its plain version for tensors on the CPU (the tests and
 CPU runs) and, for tensors on a CUDA device, launches the kernel or raises;
 there is no fallback from one to the other. Each kernel has a launch
-counter (``LOOKUP_PYRAMID.launches``, ``DEPTH_AGREE.launches``) that its
-wrapper bumps once per launch and nowhere else.
+counter (``LOOKUP_PYRAMID.launches`` and so on) that its wrapper bumps once
+per launch and nowhere else.
 """
 
 import ctypes
@@ -45,7 +56,17 @@ LOOKUP_PYRAMID = Kernel("lookup_pyramid",
 DEPTH_AGREE = Kernel("depth_agree",
                      "glorie_slam_tpu_torch/csrc/depth_agree.cu",
                      "glorie_slam_tpu/ops/pallas_corr.py:678")
-KERNELS = (LOOKUP_PYRAMID, DEPTH_AGREE)
+LOOKUP_LEVEL = Kernel("lookup_level",
+                      "glorie_slam_tpu_torch/csrc/lookup_pyramid.cu",
+                      "glorie_slam_tpu/ops/pallas_corr.py:287")
+LOOKUP_PLANE = Kernel("lookup_plane",
+                      "glorie_slam_tpu_torch/csrc/lookup_plane.cu",
+                      "glorie_slam_tpu/ops/pallas_corr.py:174")
+LOOKUP_PLANE_SLOTS = Kernel("lookup_plane_slots",
+                            "glorie_slam_tpu_torch/csrc/lookup_plane.cu",
+                            "glorie_slam_tpu/ops/pallas_corr.py:507")
+KERNELS = (LOOKUP_PYRAMID, DEPTH_AGREE, LOOKUP_LEVEL, LOOKUP_PLANE,
+           LOOKUP_PLANE_SLOTS)
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
@@ -59,6 +80,11 @@ def _lib():
             [_vp] * 5 + [_int] * 8 + [_vp] * 4 + [_int, _int, _vp])
         lib.glorie_depth_agree.restype = _int
         lib.glorie_depth_agree.argtypes = [_vp] * 4 + [_int] * 4 + [_vp]
+        lib.glorie_lookup_level.restype = _int
+        lib.glorie_lookup_level.argtypes = (
+            [_vp] * 2 + [_int] * 2 + [_vp] * 4 + [_int] * 2 + [_vp])
+        lib.glorie_lookup_plane.restype = _int
+        lib.glorie_lookup_plane.argtypes = [_vp] * 4 + [_int] * 4 + [_vp]
         lib._glorie_typed = True
     return lib
 
@@ -135,36 +161,31 @@ def _hat_weights(pos, size: int, radius: int = RADIUS):
                        min=0.0)
 
 
-def lookup_pyramid_plain(f1, f2_levels, iis, jjs, coords):
-    """Plain PyTorch version of ``lookup_pyramid``: per-edge correlation
-    planes by ``bmm`` (fp32), then the separable hat-weight window. Edges
-    go through 8 at a time to bound the planes' memory."""
-    E, npix, _ = coords.shape
+def lookup_separable(plane, coords):
+    """Windowed bilinear lookup as two contractions with hat weights.
+
+    plane: (E, npix, hl, wl) correlation planes of one level; coords:
+    (E, npix, 2) [x, y] in level units. Returns (E, npix, 49) float32,
+    window flattened x-major (channel a*7 + b)."""
+    E, npix, hl, wl = plane.shape
     rd = 2 * RADIUS + 1
+    wx = _hat_weights(coords[..., 0], wl)                  # (E, p, wl, rd)
+    wy = _hat_weights(coords[..., 1], hl)                  # (E, p, hl, rd)
+    tmp = torch.einsum("ephw,ephb->epbw", plane.float(), wy)
+    out = torch.einsum("epbw,epwa->epab", tmp, wx)
+    return out.reshape(E, npix, rd * rd)
+
+
+def lookup_pyramid_plain(f1, f2_levels, iis, jjs, coords):
+    """Plain PyTorch version of ``lookup_pyramid``: kernel C's plain
+    version at each level, rounded to bf16."""
     c = torch.nan_to_num(coords.float())
-    outs = []
-    for s in range(0, E, 8):
-        ii = iis[s:s + 8].long()
-        jj = jjs[s:s + 8].long()
-        cs = c[s:s + 8]
-        a = f1[ii].float()
-        levels = []
-        for lvl, f2 in enumerate(f2_levels):
-            _, hl, wl, C = f2.shape
-            b = f2[jj].reshape(len(jj), hl * wl, C).float()
-            vol = torch.bmm(a, b.transpose(1, 2)) / 16.0
-            vol = vol.reshape(len(jj), npix, hl, wl)
-            pos = cs / (2.0 ** lvl)
-            wx = _hat_weights(pos[..., 0], wl)          # (e, p, wl, rd)
-            wy = _hat_weights(pos[..., 1], hl)          # (e, p, hl, rd)
-            tmp = torch.einsum("ephw,ephb->epbw", vol, wy)
-            win = torch.einsum("epbw,epwa->epab", tmp, wx)
-            levels.append(win.reshape(len(jj), npix, rd * rd))
-        outs.append(torch.cat(levels, dim=-1))
-    if not outs:
-        return torch.empty((0, npix, LEVELS * rd * rd), dtype=torch.bfloat16,
-                           device=f1.device)
-    return torch.cat(outs, dim=0).to(torch.bfloat16)
+    C = f1.shape[2]
+    outs = [lookup_level_plain(
+        f1, f2.reshape(f2.shape[0], f2.shape[1] * f2.shape[2], C), iis, jjs,
+        c / (2.0 ** lvl), f2.shape[1], f2.shape[2])
+        for lvl, f2 in enumerate(f2_levels)]
+    return torch.cat(outs, dim=-1).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -218,3 +239,150 @@ def depth_agree_plain(dmaps, jxs, cu):
         c = flat[base + off]
         agree = agree | ((izd - 1.0 / c).abs() < thr)
     return (inb & agree).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# kernel C: one level's correlation lookup from feature stores
+# ---------------------------------------------------------------------------
+
+def lookup_level(f1, f2, iis, jjs, coords, hl: int, wl: int):
+    """Windowed single-level correlation lookup.
+
+    f1: (N, npix, 128) bf16 level-0 store; f2: (N2, hl*wl, 128) bf16 store
+    of this level (``f1`` itself at level 0); iis/jjs: (E,) int32
+    source/target frames; coords: (E, npix, 2) float32 [x, y] already in
+    level units (NaN -> 0). Returns (E, npix, 49) float32, correlation
+    scaled by 1/16, channel = a*7 + b (a: x offset).
+    """
+    if f1.device.type == "cpu":
+        return lookup_level_plain(f1, f2, iis, jjs, coords, hl, wl)
+    if f1.device.type != "cuda":
+        raise ValueError(f"lookup_level: unsupported device {f1.device}")
+    N, npix, C = f1.shape
+    E = iis.shape[0]
+    if C != CHANNELS or f2.dim() != 3 or f2.shape[1:] != (hl * wl, C):
+        raise ValueError("lookup_level: needs 128-channel stores with "
+                         "hl*wl rows in f2")
+    if coords.shape != (E, npix, 2) or jjs.shape != (E,):
+        raise ValueError("lookup_level: coords/jjs shape mismatch")
+    bf, i32, f32 = torch.bfloat16, torch.int32, torch.float32
+    _check_cuda("lookup_level", [f1, f2, iis, jjs, coords],
+                [bf, bf, i32, i32, f32])
+    out = torch.empty((E, npix, (2 * RADIUS + 1) ** 2), dtype=f32,
+                      device=f1.device)
+    if E == 0:
+        return out
+    err = _lib().glorie_lookup_level(
+        f1.data_ptr(), f2.data_ptr(), hl, wl, iis.data_ptr(), jjs.data_ptr(),
+        coords.data_ptr(), out.data_ptr(), E, npix, _stream(f1.device))
+    if err:
+        raise RuntimeError(f"lookup_level: CUDA error {err}")
+    LOOKUP_LEVEL.launches += 1
+    return out
+
+
+def lookup_level_plain(f1, f2, iis, jjs, coords, hl: int, wl: int):
+    """Plain PyTorch version of ``lookup_level``: per-edge correlation
+    planes by ``bmm`` (fp32), then the separable hat-weight window. Edges
+    go through 8 at a time to bound the planes' memory."""
+    E, npix, _ = coords.shape
+    c = torch.nan_to_num(coords.float())
+    outs = [torch.empty((0, npix, (2 * RADIUS + 1) ** 2),
+                        dtype=torch.float32, device=f1.device)]
+    for s in range(0, E, 8):
+        a = f1[iis[s:s + 8].long()].float()
+        b = f2[jjs[s:s + 8].long(), :hl * wl].float()
+        vol = torch.bmm(a, b.transpose(1, 2)) / 16.0
+        outs.append(lookup_separable(vol.reshape(len(a), npix, hl, wl),
+                                     c[s:s + 8]))
+    return torch.cat(outs)
+
+
+# ---------------------------------------------------------------------------
+# kernels D and E: window lookup over precomputed correlation planes
+# ---------------------------------------------------------------------------
+
+def _launch_plane(kernel, planes, slots, coords):
+    """Checks, then kernel D (``slots`` None) or E; bumps ``kernel``'s
+    count when it launches."""
+    name = kernel.name
+    if planes.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {planes.device}")
+    S, hl, wl, npix = planes.shape
+    E = coords.shape[0]
+    if coords.shape != (E, npix, 2):
+        raise ValueError(f"{name}: coords must be (E, {npix}, 2)")
+    tensors = [planes, coords] + ([] if slots is None else [slots])
+    dtypes = [torch.bfloat16, torch.float32, torch.int32]
+    _check_cuda(name, tensors, dtypes[:len(tensors)])
+    out = torch.empty((E, npix, (2 * RADIUS + 1) ** 2), dtype=torch.float32,
+                      device=planes.device)
+    if E == 0:
+        return out
+    if slots is not None:
+        _check_slots(slots, S)
+    err = _lib().glorie_lookup_plane(
+        planes.data_ptr(), None if slots is None else slots.data_ptr(),
+        coords.data_ptr(), out.data_ptr(), E, hl, wl, npix,
+        _stream(planes.device))
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    kernel.launches += 1
+    return out
+
+
+def lookup_plane(planes, coords):
+    """Windowed lookup over correlation planes.
+
+    planes: (E, hl, wl, npix) bf16, pixel-minor (``corr.all_pairs_corr_lanes``
+    and its pooled levels); coords: (E, npix, 2) float32 [x, y] in level
+    units (NaN -> 0). Returns (E, npix, 49) float32, channel = a*7 + b.
+    """
+    if planes.device.type == "cpu":
+        return lookup_plane_plain(planes, coords)
+    if planes.shape[0] != coords.shape[0]:
+        raise ValueError("lookup_plane: one plane row per edge")
+    return _launch_plane(LOOKUP_PLANE, planes, None, coords)
+
+
+def _check_slots(slots, S):
+    """Raise unless every slot is a row of a capacity-``S`` store: the
+    kernel reads ``slots[e]`` unchecked (one device sync on the card)."""
+    if slots.numel():
+        lo, hi = (int(v) for v in torch.aminmax(slots))
+        if lo < 0 or hi >= S:
+            raise ValueError(f"lookup_plane_slots: slots in [{lo}, {hi}] "
+                             f"outside a store of {S} rows")
+
+
+def lookup_plane_slots(store, slots, coords):
+    """``lookup_plane`` with edge e reading plane row ``slots[e]`` of the
+    (S, hl, wl, npix) bf16 ``store``; slots: (E,) int32, each in [0, S)
+    (checked before the lookup; a slot outside raises ValueError)."""
+    if slots.shape != (coords.shape[0],):
+        raise ValueError("lookup_plane_slots: one slot per edge")
+    if store.device.type == "cpu":
+        _check_slots(slots, store.shape[0])
+        return lookup_plane_slots_plain(store, slots, coords)
+    return _launch_plane(LOOKUP_PLANE_SLOTS, store, slots, coords)
+
+
+def lookup_plane_plain(planes, coords):
+    """Plain PyTorch version of ``lookup_plane``: the separable hat-weight
+    window in float32 on the planes' own values, 8 edges at a time."""
+    return lookup_plane_slots_plain(planes, None, coords)
+
+
+def lookup_plane_slots_plain(store, slots, coords):
+    """Plain PyTorch version of ``lookup_plane_slots`` (``slots`` None: row
+    e for edge e). Gathers 8 plane rows at a time, never the whole set."""
+    E, npix, _ = coords.shape
+    c = torch.nan_to_num(coords.float())
+    rows = (torch.arange(E, device=store.device) if slots is None
+            else slots.long())
+    outs = [torch.empty((0, npix, (2 * RADIUS + 1) ** 2),
+                        dtype=torch.float32, device=store.device)]
+    for s in range(0, E, 8):
+        plane = store[rows[s:s + 8]].permute(0, 3, 1, 2)   # (e, p, hl, wl)
+        outs.append(lookup_separable(plane, c[s:s + 8]))
+    return torch.cat(outs)

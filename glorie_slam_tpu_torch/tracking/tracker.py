@@ -12,10 +12,11 @@ from .motion_filter import MotionFilter
 
 
 class Tracker:
-    def __init__(self, tracker_net, video, cfg, mono_predictor=None,
-                 timer=None):
+    def __init__(self, tracker_net, video, cfg, printer=None,
+                 mono_predictor=None, timer=None):
         self.cfg = cfg
         self.video = video
+        self.printer = printer
         self.timer = timer if timer is not None else PhaseTimer()
         tcfg = cfg["tracking"]
         self.motion_filter = MotionFilter(
@@ -44,12 +45,19 @@ class Tracker:
             self.frontend()
         curr_kf_idx = self.video.counter - 1
         if curr_kf_idx != self.prev_kf_idx and self.frontend.is_initialized:
+            timer.keyframe()
             if (self.enable_online_ba
                     and curr_kf_idx >= self.prev_ba_idx + self.ba_freq):
+                if self.printer is not None:
+                    self.printer.print(
+                        f"Online BA at {curr_kf_idx}th keyframe, frame "
+                        f"index: {timestamp}", subsystem="tracker")
                 with timer.phase("online_ba"):
                     self.online_ba.dense_ba(2)
                 self.prev_ba_idx = curr_kf_idx
         self.prev_kf_idx = curr_kf_idx
+        if self.printer is not None:
+            self.printer.update_pbar()
 
     def run(self, stream):
         """Track every frame of ``stream`` (indexable, ``len``, yielding

@@ -101,13 +101,15 @@ class SyntheticStream:
             self.poses[index]
 
 
-def base_cfg(H=64, W=96, buffer=64):
-    """Tracking config for synthetic runs (DBA mode, no mono prior); the
-    tracking and camera sections of ``tests/synthetic.base_cfg``."""
+def base_cfg(H=64, W=96, buffer=64, out="output"):
+    """Tracking config for synthetic runs (DBA mode, no mono prior): the
+    run, tracking, camera and data sections of ``tests/synthetic.base_cfg``
+    (``SLAM`` writes under ``{out}/test/synth``)."""
     return {
-        "only_tracking": True,
+        "dataset": "synthetic", "scene": "synth", "setting": "test",
+        "silence": True, "only_tracking": True, "mono_prior": {},
         "tracking": {
-            "buffer": buffer, "beta": 0.6, "warmup": 5, "max_age": 25,
+            "pretrained": None, "buffer": buffer, "beta": 0.6, "warmup": 5, "max_age": 25,
             "mono_thres": False,
             "motion_filter": {"thresh": 0.0},
             "multiview_filter": {"thresh": 0.05, "visible_num": 2},
@@ -127,12 +129,13 @@ def base_cfg(H=64, W=96, buffer=64):
             "H": H, "W": W, "H_out": H, "W_out": W, "H_edge": 0, "W_edge": 0,
             "fx": W * 0.8, "fy": W * 0.8, "cx": W / 2 - 0.5, "cy": H / 2 - 0.5,
         },
+        "data": {"input_folder": "", "output": out},
     }
 
 
-def bench_cfg(H=320, W=640, buffer=400):
+def bench_cfg(H=320, W=640, buffer=400, out="output"):
     """``bench.py``'s tracking config on ``base_cfg``."""
-    cfg = base_cfg(H=H, W=W, buffer=buffer)
+    cfg = base_cfg(H=H, W=W, buffer=buffer, out=out)
     tc = cfg["tracking"]
     tc["warmup"] = 8
     tc["max_age"] = 50

@@ -6,7 +6,10 @@ has no JAX, run them without the suite's conftest:
 
 Tolerances: kernel A and its plain version both accumulate in float32 and
 round to bf16, so they differ by at most ~2 bf16 ulps; kernel B is exact
-except on pixels whose |izd - 1/c| lies within float rounding of thr.
+except on pixels whose |izd - 1/c| lies within float rounding of thr;
+kernels C, D and E and their plain versions sum float32 products of the
+same bf16 values in another order and do not round their float32 output:
+1e-4 absolute and relative.
 """
 
 import pytest
@@ -63,6 +66,57 @@ def test_depth_agree_matches_plain(dev):
     assert (out != ref).float().mean().item() <= 1e-4
 
 
+def _coords(g, E, npix, w, h, dev):
+    c = torch.rand((E, npix, 2), generator=g) * torch.tensor(
+        [w + 12.0, h + 12.0]) - 6.0
+    c[0, :3] = float("nan")
+    return c.to(dev)
+
+
+@pytest.mark.parametrize("h0,w0,lvl", [(40, 80, 0), (40, 80, 3), (6, 8, 2)])
+def test_lookup_level_matches_plain(dev, h0, w0, lvl):
+    g = torch.Generator().manual_seed(h0 + lvl)
+    N, E = 6, 9
+    fm = torch.randn((N, h0, w0, 128), generator=g).to(dev, torch.bfloat16)
+    pyr = corr.prep_feat_pyramid(fm)
+    hl, wl = (h0, w0) if lvl == 0 else pyr[lvl].shape[1:3]
+    f2 = pyr[lvl].reshape(N, hl * wl, 128).contiguous()
+    iis = torch.randint(0, N, (E,), generator=g, dtype=torch.int32).to(dev)
+    jjs = torch.randint(0, N, (E,), generator=g, dtype=torch.int32).to(dev)
+    coords = _coords(g, E, h0 * w0, wl, hl, dev)
+    before = cuda_corr.LOOKUP_LEVEL.launches
+    out = cuda_corr.lookup_level(pyr[0], f2, iis, jjs, coords, hl, wl)
+    assert cuda_corr.LOOKUP_LEVEL.launches == before + 1
+    ref = cuda_corr.lookup_level_plain(pyr[0], f2, iis, jjs, coords, hl, wl)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("hl,wl,npix", [(40, 80, 3200), (5, 10, 3200),
+                                        (7, 3, 50)])
+@pytest.mark.parametrize("slots", [False, True])
+def test_lookup_plane_matches_plain(dev, hl, wl, npix, slots):
+    g = torch.Generator().manual_seed(hl * wl + slots)
+    E = 6
+    S = 10 if slots else E
+    store = torch.randn((S, hl, wl, npix), generator=g).to(
+        dev, torch.bfloat16)
+    coords = _coords(g, E, npix, wl, hl, dev)
+    if slots:
+        sl = torch.randperm(S, generator=g)[:E].to(dev, torch.int32)
+        kernel = cuda_corr.LOOKUP_PLANE_SLOTS
+        before = kernel.launches
+        out = cuda_corr.lookup_plane_slots(store, sl, coords)
+        ref = cuda_corr.lookup_plane_slots_plain(store, sl, coords)
+    else:
+        kernel = cuda_corr.LOOKUP_PLANE
+        before = kernel.launches
+        out = cuda_corr.lookup_plane(store, coords)
+        ref = cuda_corr.lookup_plane_plain(store, coords)
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
 def test_wrappers_raise_on_bad_inputs(dev):
     f1 = torch.zeros((2, 12, 128), dtype=torch.float32, device=dev)
     lv = (f1.reshape(2, 3, 4, 128),) * 4
@@ -75,3 +129,9 @@ def test_wrappers_raise_on_bad_inputs(dev):
         cuda_corr.depth_agree(d, torch.zeros((1, 6), dtype=torch.int32,
                                              device=dev),
                               torch.zeros((1, 24, 15), device=dev))
+    planes = torch.zeros((2, 3, 4, 12), device=dev)            # not bf16
+    with pytest.raises(TypeError):
+        cuda_corr.lookup_plane(planes, torch.zeros((2, 12, 2), device=dev))
+    with pytest.raises(ValueError):
+        cuda_corr.lookup_plane_slots(planes.to(torch.bfloat16), idx,
+                                     torch.zeros((2, 12, 2), device=dev))
