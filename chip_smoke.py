@@ -12,7 +12,8 @@ Phases, each printing its wall seconds:
 2. kernels: each of the five kernels against its plain PyTorch version on
    the card, at the shapes its path gives it (the 40x80 grid of a 320x640
    frame, 128 channels, 96 edges), with timings (CUDA events), bounds and
-   a library formulation's time;
+   a library formulation's time; for kernel A also the mean box size of
+   its pixel tiles per level (``cuda_corr.tile_box_stats``);
 3. volume: the correlation-volume path (``CorrBlock`` through kernel E,
    ``lookup_pyramid`` without slots and ``alt_corr_chunk`` through D)
    and a 3-level feature pyramid (C) on the card, each held against the
@@ -31,13 +32,22 @@ Phases, each printing its wall seconds:
    full-resolution validity mask runs the depth filter), the keyframe
    ATE, the trajectory filler and the full ATE. Launch counts are zeroed
    before and read after: they are the A and B launches of the kernels
-   line.
+   line. ``LookupProbe`` wraps kernel A's wrapper from here for the run:
+   CUDA events around each wrapper call that launches give A's summed
+   event-bracketed time and its mean per launch (an upper bound on device
+   time: it includes host gaps while the card waits), and the frames that
+   the last frame's largest frontend lookup reads are copied, keeping
+   level 0 of f2 a view of f1 as on the main path; after the run A is
+   held against its plain version on them and timed beside the library
+   form and its bound (A's ``pipeline`` entry in the kernels line). The
+   peak memory includes that copy (``probe_capture_bytes``).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero without that line. Needs no network; uses one card.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -225,39 +235,64 @@ def check_close(name, out, ref, atol, rtol):
 # kernels A and C: correlation lookups from feature stores
 # ---------------------------------------------------------------------------
 
-def check_kernel_a(dev, inputs):
+def store_bytes(f1, f2_levels, iis, jjs):
+    """Bytes of the feature-store rows a lookup reads: the source frames'
+    level-0 rows and the target frames' rows at each level, each once (at
+    level 0 f2 is f1's store: frames used on either side count once)."""
     import torch
-    from glorie_slam_tpu_torch.ops import corr, cuda_corr
+    row = f1.shape[-1] * f1.element_size()
+    src, dst = torch.unique(iis.long()), torch.unique(jjs.long())
+    shared = f2_levels[0].data_ptr() == f1.data_ptr()
+    n0 = (torch.unique(torch.cat([src, dst])).numel() if shared
+          else src.numel() + dst.numel())
+    return (n0 * f1.shape[1] * row
+            + sum(dst.numel() * lv.shape[1] * lv.shape[2] * row
+                  for lv in f2_levels[1:]))
+
+
+def measure_lookup_pyramid(f1, f2, iis, jjs, coords):
+    """Kernel A on one input set: held against its plain version, timed
+    beside the library formulation, with its bound and the box sizes of
+    its tiles (``cuda_corr.tile_box_stats``)."""
+    import torch
+    from glorie_slam_tpu_torch.ops import cuda_corr
+
+    E, npix, _ = coords.shape
+    out = cuda_corr.lookup_pyramid(f1, f2, iis, jjs, coords)
+    torch.cuda.synchronize()
+    ref = cuda_corr.lookup_pyramid_plain(f1, f2, iis, jjs, coords)
+    tol = check_close("lookup_pyramid", out, ref, 1e-2, 8e-3)  # ~2 ulps
+
+    ms = cuda_ms(lambda: cuda_corr.lookup_pyramid(f1, f2, iis, jjs,
+                                                  coords), 20)
+    plain_ms = cuda_ms(lambda: cuda_corr.lookup_pyramid_plain(
+        f1, f2, iis, jjs, coords), 3, warmup=1)
+    lib_ms = cuda_ms(lambda: library_lookup(f1, f2, iis, jjs, coords), 3,
+                     warmup=1)
+
+    # bytes: the store rows read once, coords, the bf16 output written
+    # once; operations: the 128-term dot products of in-plane window cells
+    nbytes = (store_bytes(f1, f2, iis, jjs) + coords.numel() * 4
+              + 2 * E * 4 + out.numel() * 2)
+    cells = sum(in_plane_cells(coords / 2.0 ** lvl, lv.shape[1],
+                               lv.shape[2]) for lvl, lv in enumerate(f2))
+    dims = [tuple(lv.shape[1:3]) for lv in f2]
+    return kernel_result(
+        cuda_corr.LOOKUP_PYRAMID, out, ref, ms, plain_ms, lib_ms,
+        bound(nbytes, 2 * 128 * cells, BF16_FLOPS), tolerance=tol,
+        box=cuda_corr.tile_box_stats(coords, dims),
+        shapes=f"E={E} N={f1.shape[0]} {dims[0][0]}x{dims[0][1]} C=128 -> "
+               f"({E},{npix},196) bf16")
+
+
+def check_kernel_a(dev, inputs):
+    from glorie_slam_tpu_torch.ops import corr
 
     fm, iis, jjs, coords = inputs
     N, h0, w0, _ = fm.shape
-    E, npix, _ = coords.shape
     pyr = corr.prep_feat_pyramid(fm)
     f2 = (pyr[0].reshape(N, h0, w0, 128),) + tuple(pyr[1:])
-
-    out = cuda_corr.lookup_pyramid(pyr[0], f2, iis, jjs, coords)
-    torch.cuda.synchronize()
-    ref = cuda_corr.lookup_pyramid_plain(pyr[0], f2, iis, jjs, coords)
-    tol = check_close("lookup_pyramid", out, ref, 1e-2, 8e-3)  # ~2 ulps
-
-    ms = cuda_ms(lambda: cuda_corr.lookup_pyramid(pyr[0], f2, iis, jjs,
-                                                  coords), 20)
-    plain_ms = cuda_ms(lambda: cuda_corr.lookup_pyramid_plain(
-        pyr[0], f2, iis, jjs, coords), 3, warmup=1)
-    lib_ms = cuda_ms(lambda: library_lookup(pyr[0], f2, iis, jjs, coords),
-                     3, warmup=1)
-
-    # bytes: each store read once, coords, the bf16 output written once;
-    # operations: the 128-term dot products of in-plane window cells only
-    nbytes = (sum(t.numel() * t.element_size() for t in pyr)
-              + coords.numel() * 4 + 2 * E * 4 + out.numel() * 2)
-    cells = sum(in_plane_cells(coords / 2.0 ** lvl, lv.shape[1],
-                               lv.shape[2]) for lvl, lv in enumerate(f2))
-    return kernel_result(
-        cuda_corr.LOOKUP_PYRAMID, out, ref, ms, plain_ms, lib_ms,
-        bound(nbytes, 2 * 128 * cells, BF16_FLOPS),
-        tolerance=tol,
-        shapes=f"E={E} N={N} {h0}x{w0} C=128 -> ({E},{npix},196) bf16")
+    return measure_lookup_pyramid(pyr[0], f2, iis, jjs, coords)
 
 
 def check_kernel_c(dev, inputs):
@@ -613,6 +648,75 @@ def reference_check():
     return dict(step=step, run=run)
 
 
+def compact_lookup_inputs(f1, f2_levels, iis, jjs, coords):
+    """A copy of a kernel A call's inputs that holds only the frames the
+    call reads, with iis/jjs renumbered to them. Where f2's level 0 is
+    f1's store, as on the main path, it stays a view of the copied f1, so
+    the copy aliases as the original does and ``store_bytes`` counts the
+    shared rows once."""
+    import torch
+    frames = torch.unique(torch.cat([iis, jjs]).long())    # sorted
+
+    def renumber(ix):
+        return torch.searchsorted(frames, ix.long()).to(ix.dtype)
+
+    f1c = f1[frames]
+    f2c = tuple(lv[frames] for lv in f2_levels)
+    if f2_levels[0].data_ptr() == f1.data_ptr():
+        f2c = (f1c.view(f2c[0].shape),) + f2c[1:]
+    return f1c, f2c, renumber(iis), renumber(jjs), coords.clone()
+
+
+class LookupProbe:
+    """Wraps ``cuda_corr.lookup_pyramid`` (kernel A) from outside the
+    package for one ``SLAM.run``: CUDA events around every wrapper call
+    that launches, read once after the run (the time between them includes
+    the wrapper's host work and any wait for the host while the card is
+    idle, so it bounds the kernel's device time from above), and a compact
+    copy of the inputs of the largest-E call that the frontend makes on the
+    last frame (``frame`` and ``phase`` are set by the caller's step and
+    phase wrappers)."""
+
+    def __init__(self, last_frame):
+        from glorie_slam_tpu_torch.ops import cuda_corr
+        self.cuda_corr = cuda_corr
+        self.inner = cuda_corr.lookup_pyramid
+        self.last_frame = last_frame
+        self.frame, self.phase = -1, None
+        self.events, self.captured = [], None
+
+    def __call__(self, f1, f2, iis, jjs, coords):
+        import torch
+        k = self.cuda_corr.LOOKUP_PYRAMID
+        before = k.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.inner(f1, f2, iis, jjs, coords)
+        end.record()
+        if k.launches > before:
+            self.events.append((start, end))
+        if (self.frame == self.last_frame and self.phase == "frontend"
+                and (self.captured is None
+                     or iis.shape[0] > self.captured[2].shape[0])):
+            self.captured = compact_lookup_inputs(f1, f2, iis, jjs, coords)
+        return out
+
+    def __enter__(self):
+        self.cuda_corr.lookup_pyramid = self
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda_corr.lookup_pyramid = self.inner
+
+    def event_ms(self):
+        """Kernel A's summed event-bracketed ms and its launches over the
+        run."""
+        import torch
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events), len(self.events)
+
+
 def pipeline(n_frames, H=320, W=640):
     """``SLAM.run`` tracking-only at 320x640 (see the module doc)."""
     import numpy as np
@@ -641,6 +745,7 @@ def pipeline(n_frames, H=320, W=640):
         step = tracker.step
 
         def timed_step(i, s):
+            probe.frame = i
             t0 = time.perf_counter()
             step(i, s)
             torch.cuda.synchronize()
@@ -649,6 +754,19 @@ def pipeline(n_frames, H=320, W=640):
                   f"{video.counter}", flush=True)
 
         tracker.step = timed_step
+        probe = LookupProbe(n_frames - 1)
+        phase_ctx = tracker.timer.phase
+
+        @contextlib.contextmanager
+        def named_phase(name):
+            probe.phase = name
+            try:
+                with phase_ctx(name):
+                    yield
+            finally:
+                probe.phase = None
+
+        tracker.timer.phase = named_phase
         filler = slam.traj_filler
         filler_launches = {}
 
@@ -664,8 +782,10 @@ def pipeline(n_frames, H=320, W=640):
         for k in cuda_corr.KERNELS:
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        slam.run()
+        with probe:
+            slam.run()
         torch.cuda.synchronize()
+        a_ms, a_launches = probe.event_ms()
         launches = {k.name: k.launches for k in cuda_corr.KERNELS}
         peak = torch.cuda.max_memory_allocated()
 
@@ -705,6 +825,9 @@ def pipeline(n_frames, H=320, W=640):
                                  "main path")
     if filler_launches.get("lookup_pyramid", 0) <= 0:
         raise AssertionError("the trajectory filler launched no lookup")
+    if a_launches != launches["lookup_pyramid"] or probe.captured is None:
+        raise AssertionError("the probe missed launches of kernel A or the "
+                             "last frame's frontend lookups")
     ph = phases["phases"]
     steady = times[-20:]
     return dict(
@@ -720,7 +843,12 @@ def pipeline(n_frames, H=320, W=640):
         loop_closure_at=tracker.frontend.last_loop_t,
         online_ba_at=tracker.prev_ba_idx,
         phases=phases, peak_memory_bytes=peak,
-        valid_mask_fraction=float(saved["valid_depth_masks"].mean()))
+        valid_mask_fraction=float(saved["valid_depth_masks"].mean()),
+        probe_capture_bytes=sum(t.numel() * t.element_size() for t in {
+            t.data_ptr(): t for t in (probe.captured[0], *probe.captured[1],
+                                      *probe.captured[2:])}.values()),
+        lookup_pyramid_event_ms=a_ms,
+        lookup_pyramid_event_ms_per_launch=a_ms / a_launches), probe.captured
 
 
 def main():
@@ -763,8 +891,19 @@ def main():
     phase("reference", t0)
 
     t0 = time.perf_counter()
-    pipe = pipeline(PIPELINE_FRAMES)
+    pipe, captured = pipeline(PIPELINE_FRAMES)
     print("[pipeline] " + json.dumps(pipe), flush=True)
+    # kernel A on the inputs of the last frame's largest frontend lookup
+    on_pipe = measure_lookup_pyramid(*captured)
+    del captured
+    on_pipe = {k: on_pipe[k] for k in (
+        "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "box", "shapes")}
+    on_pipe.update(event_ms_over_run=pipe["lookup_pyramid_event_ms"],
+                   event_ms_per_launch_over_run=pipe[
+                       "lookup_pyramid_event_ms_per_launch"])
+    print("[pipeline] kernel A on captured inputs: " + json.dumps(on_pipe),
+          flush=True)
     phase("pipeline", t0)
 
     # A and B launch on the tracking path (the pipeline); C, D and E on
@@ -781,6 +920,9 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if r["name"] == cuda_corr.LOOKUP_PYRAMID.name:
+            kernels[-1]["box"] = r["box"]
+            kernels[-1]["pipeline"] = on_pipe
     assert {k.name for k in cuda_corr.KERNELS} == {k["name"] for k in kernels}
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,8 +6,10 @@ Counterpart of ``glorie_slam_tpu/ops/pallas_corr.py``. Five kernels:
   ``lookup_feats_pyramid_pallas`` (pallas_corr.py:363, pallas_call :412):
   the 4-level 7x7 bilinear correlation lookup computed from feature stores.
   At the slice's shapes its least time on the card is set by bytes (the
-  bf16 output dominates); this version runs its 4*64*128 MACs per edge and
-  pixel on CUDA cores, which limits it well above that.
+  bf16 output dominates). One block takes an 8x8 tile of source pixels and
+  runs wgmma products of their f1 rows against the f2 rows of the tile's
+  window box (``tile_box_spans`` is that rule on the host), keeping the
+  products that fall in each pixel's window.
 * ``depth_agree`` (kernel B, ``csrc/depth_agree.cu``) replaces
   ``depth_agree_pallas`` (pallas_corr.py:644, pallas_call :678): the
   4-corner multiview depth-agreement test. Bound on the card: bytes.
@@ -40,6 +42,12 @@ from .. import build
 RADIUS = 3
 LEVELS = 4
 CHANNELS = 128
+MAX_ROWS, MAX_COLS = 16384, 32768   # plane sizes kernels A and C accept
+# kernel A's box rule, checked against the kernel's own constants when the
+# library loads (``glorie_lookup_geometry``)
+TILE = (8, 8)       # kernel A's pixel tile (rows, columns): the MMA's 64 rows
+RUN = 32            # box cells per shared-memory stage: the MMA's 32 columns
+MARGIN = 16         # level coordinates clamp to [-MARGIN, size + MARGIN]
 
 
 @dataclass
@@ -85,6 +93,13 @@ def _lib():
             [_vp] * 2 + [_int] * 2 + [_vp] * 4 + [_int] * 2 + [_vp])
         lib.glorie_lookup_plane.restype = _int
         lib.glorie_lookup_plane.argtypes = [_vp] * 4 + [_int] * 4 + [_vp]
+        lib.glorie_lookup_geometry.restype = None
+        geometry = (_int * 4)()
+        lib.glorie_lookup_geometry(geometry)
+        if tuple(geometry) != (*TILE, RUN, MARGIN):
+            raise RuntimeError(
+                f"cuda_corr: TILE, RUN, MARGIN {(*TILE, RUN, MARGIN)} differ "
+                f"from the kernel's {tuple(geometry)}")
         lib._glorie_typed = True
     return lib
 
@@ -131,6 +146,10 @@ def lookup_pyramid(f1, f2_levels, iis, jjs, coords):
         raise ValueError("lookup_pyramid: level 0 must cover npix pixels")
     if coords.shape != (E, npix, 2) or jjs.shape != (E,):
         raise ValueError("lookup_pyramid: coords/jjs shape mismatch")
+    if any(lv.shape[1] >= MAX_ROWS or lv.shape[2] >= MAX_COLS
+           for lv in f2_levels):
+        raise ValueError("lookup_pyramid: planes must be under "
+                         f"{MAX_ROWS} x {MAX_COLS} cells")
     bf, i32, f32 = torch.bfloat16, torch.int32, torch.float32
     _check_cuda("lookup_pyramid",
                 [f1, *f2_levels, iis, jjs, coords],
@@ -174,6 +193,80 @@ def lookup_separable(plane, coords):
     tmp = torch.einsum("ephw,ephb->epbw", plane.float(), wy)
     out = torch.einsum("epbw,epwa->epab", tmp, wx)
     return out.reshape(E, npix, rd * rd)
+
+
+def tile_box_spans(coords, dims, tile=TILE):
+    """Kernel A's box rule on the host (the port's counterpart of the JAX
+    package's ``band_coverage_stats``): a second copy of the rule in
+    ``csrc/lookup_pyramid.cu``, a diagnostic only. Its constants are
+    checked against the kernel's when the library loads; the rule itself
+    is held only against a brute-force enumeration on the host.
+
+    coords: (E, npix, 2) level-0 [x, y] over the h0 x w0 pixel grid;
+    dims: ((h0, w0), (h1, w1), ...) level sizes; tile: (rows, columns) of a
+    block's pixel tile. A pixel's level-l window starts at cell
+    (floor(x) - 3, floor(y) - 3) of the cleaned coordinates (NaN -> 0,
+    clamped to [-MARGIN, size + MARGIN]); its in-plane part is that 8x8
+    block clipped to the plane. A tile's box is, row by row, the span from the
+    leftmost to the rightmost in-plane window cell of the tile's pixels on
+    that row; pixels outside the grid or with no in-plane cell add nothing.
+
+    Returns one (xlo, xhi) pair of int64 tensors (E, n_tiles, h_l) per
+    level: row y of the box holds cells xlo..xhi (none where xhi < xlo).
+    """
+    E, npix, _ = coords.shape
+    (h0, w0), (th, tw) = dims[0], tile
+    if h0 * w0 != npix:
+        raise ValueError("tile_box_spans: dims[0] must cover npix pixels")
+    nty, ntx = -(-h0 // th), -(-w0 // tw)
+    dev = coords.device
+    grid = torch.zeros((E, nty * th, ntx * tw, 2), device=dev)
+    grid[:, :h0, :w0] = coords.float().reshape(E, h0, w0, 2)
+    ok = torch.zeros((nty * th, ntx * tw), dtype=torch.bool, device=dev)
+    ok[:h0, :w0] = True
+
+    def tiles(v):   # (..., nty*th, ntx*tw) -> (..., n_tiles, th*tw)
+        v = v.reshape(*v.shape[:-2], nty, th, ntx, tw).transpose(-3, -2)
+        return v.reshape(*v.shape[:-4], nty * ntx, th * tw)
+
+    cx, cy, ok = tiles(grid[..., 0]), tiles(grid[..., 1]), tiles(ok)
+    side = 2 * RADIUS + 2
+    span = torch.arange(side, device=dev)
+    out = []
+    for lvl, (hl, wl) in enumerate(dims):
+        def origin(c, size):
+            c = torch.nan_to_num(c * (1.0 / 2 ** lvl), nan=0.0)
+            return (torch.floor(c.clamp(-MARGIN, size + MARGIN)).long()
+                    - RADIUS)
+
+        ox, oy = origin(cx, wl), origin(cy, hl)
+        x0, x1 = ox.clamp(min=0), (ox + side - 1).clamp(max=wl - 1)
+        inb = ok & (x0 <= x1) & (oy + side - 1 >= 0) & (oy < hl)
+        rows = oy[..., None] + span                      # (E, T, 64, 8)
+        use = inb[..., None] & (rows >= 0) & (rows < hl)
+        rows = torch.where(use, rows, hl).reshape(E, nty * ntx, -1)
+        big = 1 << 29
+        xlo = torch.full((E, nty * ntx, hl + 1), big, device=dev)
+        xhi = torch.full_like(xlo, -big)
+        xlo.scatter_reduce_(2, rows, x0[..., None].expand(
+            *x0.shape, side).reshape(rows.shape), "amin")
+        xhi.scatter_reduce_(2, rows, x1[..., None].expand(
+            *x1.shape, side).reshape(rows.shape), "amax")
+        out.append((xlo[..., :hl], xhi[..., :hl]))
+    return out
+
+
+def tile_box_stats(coords, dims, tile=TILE):
+    """Mean box size in cells per (edge, tile) at each level under kernel
+    A's rule (``tile_box_spans``): {"tiles": E * n_tiles,
+    "box_cells": [per level], "runs": [per level, box cells in runs of
+    ``RUN``, rounded up per tile]}."""
+    spans = tile_box_spans(coords, dims, tile)
+    cells = [(xhi - xlo + 1).clamp(min=0).sum(-1) for xlo, xhi in spans]
+    return {"tiles": int(cells[0].numel()),
+            "box_cells": [float(c.float().mean()) for c in cells],
+            "runs": [float(((c + RUN - 1) // RUN).float().mean())
+                     for c in cells]}
 
 
 def lookup_pyramid_plain(f1, f2_levels, iis, jjs, coords):
@@ -265,6 +358,9 @@ def lookup_level(f1, f2, iis, jjs, coords, hl: int, wl: int):
                          "hl*wl rows in f2")
     if coords.shape != (E, npix, 2) or jjs.shape != (E,):
         raise ValueError("lookup_level: coords/jjs shape mismatch")
+    if hl >= MAX_ROWS or wl >= MAX_COLS:
+        raise ValueError("lookup_level: planes must be under "
+                         f"{MAX_ROWS} x {MAX_COLS} cells")
     bf, i32, f32 = torch.bfloat16, torch.int32, torch.float32
     _check_cuda("lookup_level", [f1, f2, iis, jjs, coords],
                 [bf, bf, i32, i32, f32])

@@ -77,8 +77,13 @@ def main():
                    if e.device_type == DeviceType.CUDA
                    and e.device_time_total > 0), key=lambda r: -r[1])
     busy_s = sum(r[1] for r in rows) / 1e6
+    # kernel A (lookup_feats_kernel<4, ...>) and kernel C (<1, ...>)
+    kernel_a_s = sum(r[1] for r in rows
+                     if "lookup_feats_kernel<4" in r[0]) / 1e6
     print(json.dumps({
         "frames_profiled": args.profile, "wall_s": wall,
+        "kernel_a_device_s": kernel_a_s,
+        "kernel_a_share_of_busy": kernel_a_s / busy_s,
         "wall_ms_per_frame": 1e3 * wall / args.profile,
         "device_busy_s": busy_s, "device_busy_share": busy_s / wall,
         "device_idle_share": 1 - busy_s / wall,

@@ -27,18 +27,66 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("h0,w0,E", [(40, 80, 24), (6, 8, 5), (10, 14, 7)])
-def test_lookup_pyramid_matches_plain(dev, h0, w0, E):
+def _flow(g, kind, E, h0, w0):
+    """Level-0 coords (E, h0*w0, 2) of one of kernel A's test cases:
+
+    smooth: the pixel grid under a small global shift and a gentle
+        depth-like warp (neighbouring windows overlap: small boxes);
+    incoherent: uniform over the whole plane (each tile's box is the plane,
+        and the chunk loop takes many stages);
+    outliers: smooth, with NaN centres and centres 45-60 cells off the
+        plane inside the first tile and a middle one."""
+    yy, xx = torch.meshgrid(torch.arange(h0, dtype=torch.float32),
+                            torch.arange(w0, dtype=torch.float32),
+                            indexing="ij")
+    base = torch.stack([xx, yy], -1).reshape(1, h0 * w0, 2)
+    if kind == "incoherent":
+        return torch.rand((E, h0 * w0, 2), generator=g) * torch.tensor(
+            [float(w0), float(h0)])
+    scale = 1.0 + 0.05 * torch.rand((E, 1, 1), generator=g)
+    shift = torch.tensor([1.5, -0.7]) + torch.randn((E, 1, 2), generator=g)
+    c = (base - torch.tensor([w0 / 2, h0 / 2])) * scale + torch.tensor(
+        [w0 / 2, h0 / 2]) + shift
+    c = c + 0.3 * torch.sin(base[..., 1:] / 5.0) + 0.1 * torch.randn(
+        (E, h0 * w0, 2), generator=g)
+    if kind == "outliers":
+        mid = (h0 // 2) * w0 + w0 // 2
+        for p0 in (0, mid):
+            c[:, p0] = float("nan")
+            c[:, p0 + 1] += 60.0
+            c[:, p0 + w0] -= 45.0
+            c[:, p0 + w0 + 1, 0] = float("nan")
+    return c
+
+
+@pytest.mark.parametrize("h0,w0,E,kind", [
+    (40, 80, 24, "uniform"), (6, 8, 5, "uniform"), (10, 14, 7, "uniform"),
+    (40, 80, 16, "smooth"), (40, 80, 1, "smooth"), (13, 21, 4, "smooth"),
+    (40, 80, 8, "incoherent"), (136, 8, 3, "incoherent"),
+    (40, 80, 6, "outliers"), (6, 8, 3, "empty level 3")])
+def test_lookup_pyramid_matches_plain(dev, h0, w0, E, kind):
+    """uniform: centres spread over the plane and 6 cells beyond it, NaN
+    in three; 13x21 has npix = 273, no multiple of a 64-pixel tile, and a
+    ragged tile edge on both axes; E = 1 is the motion filter's call;
+    136 rows take more than one pass of box rows; "empty level 3" gives
+    the 6x8 grid's (0, 1) level 3, as the tracker's stores have it."""
     g = torch.Generator().manual_seed(h0 * w0)
     N = 6
     fm = torch.randn((N, h0, w0, 128), generator=g).to(dev, torch.bfloat16)
     pyr = corr.prep_feat_pyramid(fm)
     f2 = (pyr[0].reshape(N, h0, w0, 128),) + tuple(pyr[1:])
+    if kind == "empty level 3":
+        f2 = f2[:3] + (torch.empty((N, 0, 1, 128), dtype=torch.bfloat16,
+                                   device=dev),)
     iis = torch.randint(0, N, (E,), generator=g, dtype=torch.int32).to(dev)
     jjs = torch.randint(0, N, (E,), generator=g, dtype=torch.int32).to(dev)
-    coords = torch.rand((E, h0 * w0, 2), generator=g) * torch.tensor(
-        [w0 + 12.0, h0 + 12.0]) - 6.0
-    coords[0, :3] = float("nan")
+    if kind == "uniform":
+        coords = torch.rand((E, h0 * w0, 2), generator=g) * torch.tensor(
+            [w0 + 12.0, h0 + 12.0]) - 6.0
+        coords[0, :3] = float("nan")
+    else:
+        coords = _flow(g, "smooth" if kind == "empty level 3" else kind, E,
+                       h0, w0)
     coords = coords.to(dev)
     before = cuda_corr.LOOKUP_PYRAMID.launches
     out = cuda_corr.lookup_pyramid(pyr[0], f2, iis, jjs, coords)
@@ -46,6 +94,8 @@ def test_lookup_pyramid_matches_plain(dev, h0, w0, E):
     ref = cuda_corr.lookup_pyramid_plain(pyr[0], f2, iis, jjs, coords)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
                                rtol=8e-3)
+    if kind == "empty level 3":
+        assert not out[..., 147:].float().any()
 
 
 def test_depth_agree_matches_plain(dev):
@@ -73,23 +123,38 @@ def _coords(g, E, npix, w, h, dev):
     return c.to(dev)
 
 
-@pytest.mark.parametrize("h0,w0,lvl", [(40, 80, 0), (40, 80, 3), (6, 8, 2)])
-def test_lookup_level_matches_plain(dev, h0, w0, lvl):
+@pytest.mark.parametrize("h0,w0,lvl,kind", [
+    (40, 80, 0, "uniform"), (40, 80, 3, "uniform"), (6, 8, 2, "uniform"),
+    (40, 80, 0, "smooth"), (40, 80, 1, "outliers"), (13, 21, 0, "smooth"),
+    (40, 80, 0, "incoherent"), (6, 8, 3, "empty")])
+def test_lookup_level_matches_plain(dev, h0, w0, lvl, kind):
+    """Kernel C on the cases of kernel A's test; 13x21 at level 0 and
+    the (0, 1) level 3 of a 6x8 grid ("empty")."""
     g = torch.Generator().manual_seed(h0 + lvl)
     N, E = 6, 9
     fm = torch.randn((N, h0, w0, 128), generator=g).to(dev, torch.bfloat16)
     pyr = corr.prep_feat_pyramid(fm)
-    hl, wl = (h0, w0) if lvl == 0 else pyr[lvl].shape[1:3]
-    f2 = pyr[lvl].reshape(N, hl * wl, 128).contiguous()
+    if kind == "empty":
+        hl, wl = 0, 1
+        f2 = torch.empty((N, 0, 128), dtype=torch.bfloat16, device=dev)
+    else:
+        hl, wl = (h0, w0) if lvl == 0 else pyr[lvl].shape[1:3]
+        f2 = pyr[lvl].reshape(N, hl * wl, 128).contiguous()
     iis = torch.randint(0, N, (E,), generator=g, dtype=torch.int32).to(dev)
     jjs = torch.randint(0, N, (E,), generator=g, dtype=torch.int32).to(dev)
-    coords = _coords(g, E, h0 * w0, wl, hl, dev)
+    if kind == "uniform":
+        coords = _coords(g, E, h0 * w0, wl, hl, dev)
+    else:
+        coords = (_flow(g, "smooth" if kind == "empty" else kind, E, h0, w0)
+                  / 2.0 ** lvl).to(dev)
     before = cuda_corr.LOOKUP_LEVEL.launches
     out = cuda_corr.lookup_level(pyr[0], f2, iis, jjs, coords, hl, wl)
     assert cuda_corr.LOOKUP_LEVEL.launches == before + 1
     ref = cuda_corr.lookup_level_plain(pyr[0], f2, iis, jjs, coords, hl, wl)
     assert out.dtype == torch.float32
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    if kind == "empty":
+        assert not out.any()
 
 
 @pytest.mark.parametrize("hl,wl,npix", [(40, 80, 3200), (5, 10, 3200),
@@ -135,3 +200,13 @@ def test_wrappers_raise_on_bad_inputs(dev):
     with pytest.raises(ValueError):
         cuda_corr.lookup_plane_slots(planes.to(torch.bfloat16), idx,
                                      torch.zeros((2, 12, 2), device=dev))
+    # kernels A and C key cells as y * 65536 + x: planes of 16384 rows or
+    # more are refused
+    tall = torch.zeros((1, 16384, 128), dtype=torch.bfloat16, device=dev)
+    small = torch.zeros((1, 1, 1, 128), dtype=torch.bfloat16, device=dev)
+    c_tall = torch.zeros((1, 16384, 2), device=dev)
+    with pytest.raises(ValueError):
+        cuda_corr.lookup_pyramid(tall, (tall.reshape(1, 16384, 1, 128),)
+                                 + (small,) * 3, idx, idx, c_tall)
+    with pytest.raises(ValueError):
+        cuda_corr.lookup_level(tall, tall, idx, idx, c_tall, 16384, 1)
