@@ -13,9 +13,15 @@ Phases, each printing its wall seconds:
    the card, at the shapes its path gives it (the 40x80 grid of a 320x640
    frame, 128 channels, 96 edges), with timings (CUDA events), bounds and
    a library formulation's time; for kernel A also the mean box size of
-   its pixel tiles per level (``cuda_corr.tile_box_stats``);
+   its pixel tiles per level (``cuda_corr.tile_box_stats``); for D and E
+   also the sector floor (``cuda_corr.plane_sector_stats``), a
+   ``grid_sample`` time, E without and with its range check on the card,
+   both on smooth flow, and D at its callers' shapes (``CorrBlock``
+   levels 1-3, an ``alt_corr_chunk`` tile);
 3. volume: the correlation-volume path (``CorrBlock`` through kernel E,
-   ``lookup_pyramid`` without slots and ``alt_corr_chunk`` through D)
+   run under ``torch.cuda.set_sync_debug_mode("error")`` to show that it
+   makes no device sync; ``lookup_pyramid`` without slots and
+   ``alt_corr_chunk`` through D)
    and a 3-level feature pyramid (C) on the card, each held against the
    tracker's 4-level feature-store lookup (A) on the same frames and
    coordinates. Launch counts are zeroed before and read after: they are
@@ -341,10 +347,149 @@ def check_kernel_c(dev, inputs):
 # kernels D and E: lookups over precomputed correlation planes
 # ---------------------------------------------------------------------------
 
+def smooth_coords(E=96, h0=40, w0=80, seed=1):
+    """Level-0 coords (E, h0*w0, 2) of smooth flow, by the rule of
+    ``tests/test_torch_cuda.py::_flow`` "smooth" (the pixel grid under a
+    small per-edge scale and shift and a gentle warp) drawn from
+    ``torch.Generator().manual_seed(seed)``."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h0, dtype=torch.float32),
+                            torch.arange(w0, dtype=torch.float32),
+                            indexing="ij")
+    base = torch.stack([xx, yy], -1).reshape(1, h0 * w0, 2)
+    scale = 1.0 + 0.05 * torch.rand((E, 1, 1), generator=g)
+    shift = torch.tensor([1.5, -0.7]) + torch.randn((E, 1, 2), generator=g)
+    c = (base - torch.tensor([w0 / 2, h0 / 2])) * scale + torch.tensor(
+        [w0 / 2, h0 / 2]) + shift
+    return c + 0.3 * torch.sin(base[..., 1:] / 5.0) + 0.1 * torch.randn(
+        (E, h0 * w0, 2), generator=g)
+
+
+def grid_sample_plane(store, slots, coords):
+    """D/E's window by one ``F.grid_sample`` call (bilinear, zeros padding,
+    align_corners=True) per dtype the installed PyTorch takes, bf16 and
+    float32: {dtype: {"ms", "max_abs_err" against the plain version}}.
+    The pixel-major (E*npix, 1, hl, wl) copy of the planes and the
+    sampling grid (cleaned coordinates, normalised) are made outside the
+    timed call. A bf16 call also takes its grid in bf16, which rounds the
+    sample positions: its max |d| shows it. cuDNN is off for the call
+    (its grid sampler refuses float32 at these sizes), so it is PyTorch's
+    own CUDA kernel."""
+    import torch
+    import torch.nn.functional as F
+    from glorie_slam_tpu_torch.ops import cuda_corr
+
+    E, npix, _ = coords.shape
+    _, hl, wl, _ = store.shape
+    rows = (torch.arange(E, device=store.device) if slots is None
+            else slots.long())
+    ref = cuda_corr.lookup_plane_slots_plain(store, rows, coords)
+    c = torch.nan_to_num(coords)
+    cx = c[..., 0].clamp(-16, wl + 16)[..., None, None]
+    cy = c[..., 1].clamp(-16, hl + 16)[..., None, None]
+    off = torch.arange(-3, 4, device=store.device, dtype=torch.float32)
+    gx = (cx + off[None, :]).expand(E, npix, 7, 7)      # [b][a]: x = a
+    gy = (cy + off[:, None]).expand(E, npix, 7, 7)      # y = b
+    grid = torch.stack([2 * gx / (wl - 1) - 1, 2 * gy / (hl - 1) - 1],
+                       -1).reshape(E * npix, 7, 7, 2)
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        inp = store[rows].permute(0, 3, 1, 2).reshape(E * npix, 1, hl, wl)
+        inp, gd = inp.to(dt).contiguous(), grid.to(dt)
+
+        def call():
+            with torch.backends.cudnn.flags(enabled=False):
+                return F.grid_sample(inp, gd, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=True)
+        name = str(dt).replace("torch.", "")
+        try:
+            out = call()
+        except RuntimeError as exc:            # the dtype is not taken
+            res[name] = {"error": str(exc).splitlines()[0]}
+            continue
+        out = out.float().reshape(E, npix, 7, 7).transpose(-1, -2)
+        res[name] = dict(
+            ms=cuda_ms(call, 5, warmup=1),
+            max_abs_err=float((out.reshape(E, npix, 49) - ref).abs().max()))
+        del inp, gd, out
+    return res
+
+
+def measure_plane(kernel, store, slots, coords, label):
+    """Kernel D (``slots`` None) or E on one input set: held against its
+    plain version, timed beside it and the gather formulation, with its
+    bound and the sector floor (``cuda_corr.plane_sector_stats``). E is
+    timed two ways: ``ms`` is the kernel alone (``checked=True``, as
+    ``CorrBlock`` calls it, its slots checked on the host), ``checked_ms``
+    the wrapper with its range check on the card (one device sync)."""
+    import torch
+    from glorie_slam_tpu_torch.ops import cuda_corr
+
+    E, npix, _ = coords.shape
+    _, hl, wl, _ = store.shape
+    if slots is None:
+        def run():
+            return cuda_corr.lookup_plane(store, coords)
+
+        def plain():
+            return cuda_corr.lookup_plane_plain(store, coords)
+    else:
+        def run():
+            return cuda_corr.lookup_plane_slots(store, slots, coords,
+                                                checked=True)
+
+        def plain():
+            return cuda_corr.lookup_plane_slots_plain(store, slots, coords)
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    # float32 sums of the same bf16 cells in another order
+    tol = check_close(f"{kernel.name} ({label})", out, ref, 1e-4, 1e-4)
+    ms = cuda_ms(run, 20)
+    plain_ms = cuda_ms(plain, 3, warmup=1)
+    lib_ms = cuda_ms(lambda: library_plane(store, slots, coords), 3,
+                     warmup=1)
+    # bytes: the in-plane cells the windows need (2 B each), coords,
+    # slots, the f32 output; operations: 4 corner multiply-adds per
+    # output value, float32
+    nbytes = (in_plane_cells(coords, hl, wl) * 2 + coords.numel() * 4
+              + (0 if slots is None else E * 4) + out.numel() * 4)
+    sec = cuda_corr.plane_sector_stats(coords, hl, wl)
+    res = kernel_result(
+        kernel, out, ref, ms, plain_ms, lib_ms,
+        bound(nbytes, 8 * out.numel(), FP32_FLOPS), tolerance=tol,
+        sector_floor_ms=1e3 * sec["floor_bytes"] / HBM_BYTES_PER_S,
+        sector_mb=sec["sector_bytes"] / 1e6,
+        cells_per_group=sec["cells_per_group"],
+        shapes=f"{label}: planes ({store.shape[0]},{hl},{wl},{npix}) bf16"
+               + ("" if slots is None else ", shuffled slots")
+               + f" -> ({E},{npix},49) f32")
+    if slots is not None:
+        res["checked_ms"] = cuda_ms(
+            lambda: cuda_corr.lookup_plane_slots(store, slots, coords), 20)
+    return res
+
+
+def brief(r):
+    """A D/E entry's numbers without the kernel's names."""
+    return {k: r[k] for k in (
+        "max_abs_err", "tolerance", "ms", "checked_ms", "plain_ms",
+        "bound_ms", "sector_floor_ms", "sector_mb", "cells_per_group",
+        "library_ms", "shapes") if k in r}
+
+
 def check_kernels_de(dev, inputs):
     """D on the level-0 pixel-minor volume of the 96 edges (96, 40, 80,
     3200) bf16, about 2 GB; E on the same tensor as a store at the
-    bucketed capacity (96) read through a shuffled ``slots``."""
+    bucketed capacity (96) read through a shuffled ``slots``; both with
+    ``grid_sample`` as a second library yardstick. Then both on smooth
+    flow (``smooth_coords``) over the same volume (it does not depend on
+    the coordinates), and D where its callers run it: the ``CorrBlock``
+    pyramid's levels 1-3 and one 256-pixel tile of ``alt_corr_chunk``'s
+    64-edge chunk. The first two entries' own numbers are the kernels-phase
+    inputs'; the others ride along in them."""
     import torch
     from glorie_slam_tpu_torch.ops import corr, cuda_corr
     from glorie_slam_tpu_torch.utils.buckets import bucket
@@ -355,46 +500,39 @@ def check_kernels_de(dev, inputs):
     store = corr.all_pairs_corr_lanes(fcf[iis.long()], fcf[jjs.long()])
     if store.shape[0] != bucket(E):
         raise AssertionError("store is not at the bucketed capacity")
-    _, hl, wl, _ = store.shape
     g = torch.Generator(device="cpu").manual_seed(4)
     slots = torch.randperm(E, generator=g).to(dev, torch.int32)
-    cells = in_plane_cells(coords, hl, wl)
-    results = []
-    for kernel, sl in ((cuda_corr.LOOKUP_PLANE, None),
-                       (cuda_corr.LOOKUP_PLANE_SLOTS, slots)):
-        if sl is None:
-            def run():
-                return cuda_corr.lookup_plane(store, coords)
-
-            def plain():
-                return cuda_corr.lookup_plane_plain(store, coords)
-        else:
-            def run():
-                return cuda_corr.lookup_plane_slots(store, sl, coords)
-
-            def plain():
-                return cuda_corr.lookup_plane_slots_plain(store, sl, coords)
-        out = run()
-        torch.cuda.synchronize()
-        ref = plain()
-        # float32 sums of the same bf16 cells in another order
-        tol = check_close(kernel.name, out, ref, 1e-4, 1e-4)
-        ms = cuda_ms(run, 20)
-        plain_ms = cuda_ms(plain, 3, warmup=1)
-        lib_ms = cuda_ms(lambda: library_plane(store, sl, coords), 3,
-                         warmup=1)
-        # bytes: the in-plane cells the windows need (2 B each), coords,
-        # slots, the f32 output; operations: 4 corner multiply-adds per
-        # output value, float32
-        nbytes = (cells * 2 + coords.numel() * 4 + E * 4
-                  + out.numel() * 4)
-        results.append(kernel_result(
-            kernel, out, ref, ms, plain_ms, lib_ms,
-            bound(nbytes, 8 * out.numel(), FP32_FLOPS), tolerance=tol,
-            shapes=f"planes ({E},{hl},{wl},{npix}) bf16"
-                   + ("" if sl is None else ", shuffled slots")
-                   + f" -> ({E},{npix},49) f32"))
-    return results
+    smooth = smooth_coords(E, *fm.shape[1:3]).to(dev)
+    d, e = cuda_corr.LOOKUP_PLANE, cuda_corr.LOOKUP_PLANE_SLOTS
+    res_d = measure_plane(d, store, None, coords, "kernels-phase level 0")
+    res_e = measure_plane(e, store, slots, coords, "kernels-phase level 0")
+    res_d["grid_sample"] = grid_sample_plane(store, None, coords)
+    res_e["grid_sample"] = grid_sample_plane(store, slots, coords)
+    torch.cuda.empty_cache()
+    res_d["smooth"] = brief(measure_plane(d, store, None, smooth,
+                                          "smooth level 0"))
+    res_e["smooth"] = brief(measure_plane(e, store, slots, smooth,
+                                          "smooth level 0"))
+    levels = corr.build_pyramid_lanes(store)[1:]
+    del store
+    torch.cuda.empty_cache()
+    res_d["corr_block_levels"] = [
+        brief(measure_plane(d, lv, None, coords / 2.0 ** (lvl + 1),
+                            f"CorrBlock level {lvl + 1}"))
+        for lvl, lv in enumerate(levels)]
+    del levels
+    # alt_corr_chunk's first tile at level 0: 64 edges, 256 source pixels
+    n_alt, tile = 64, corr.ALT_TILE
+    h0, w0 = fm.shape[1:3]
+    f2 = fcf[jjs[:n_alt].long()].float().reshape(n_alt, 128, h0 * w0) / 4
+    f1 = fcf[iis[:n_alt].long()].float().reshape(n_alt, 128, h0 * w0) / 4
+    plane = torch.bmm(f2.transpose(1, 2), f1[:, :, :tile]).reshape(
+        n_alt, h0, w0, tile).to(torch.bfloat16)
+    res_d["alt_corr_tile"] = brief(measure_plane(
+        d, plane, None, coords[:n_alt, :tile].contiguous(),
+        "alt_corr_chunk tile"))
+    torch.cuda.empty_cache()
+    return [res_d, res_e]
 
 
 # ---------------------------------------------------------------------------
@@ -491,13 +629,19 @@ def volume_check(dev, inputs, alt_edges=64):
     g = torch.Generator(device="cpu").manual_seed(5)
     perm = torch.randperm(E, generator=g).numpy()
     perm_d = torch.as_tensor(perm, device=dev)
+    c4_perm = c4[perm_d]
 
     for k in cuda_corr.KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     block = corr.CorrBlock(fcf[iis.long()], fcf[jjs.long()])
     block = block[perm]                       # compact order != slot order
-    out_e = block(c4[perm_d])
+    # the lookup checks its host slots on the host: no device sync
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out_e = block(c4_perm)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     out_d = corr.lookup_pyramid(block.pyramid, c4)
     out_alt = corr.alt_corr_chunk(fcf, c4[:alt_edges], iis[:alt_edges],
                                   jjs[:alt_edges])
@@ -523,6 +667,7 @@ def volume_check(dev, inputs, alt_edges=64):
                                  "volume path")
     pyr_bytes = sum(p.numel() * p.element_size() for p in block.pyramid)
     return dict(max_abs_err_vs_a=errs, launches=launches,
+                corr_block_sync_free=True,
                 seconds=seconds, corr_block_bytes=pyr_bytes,
                 capacity=block.capacity,
                 shapes=f"E={E} N={N} {h0}x{w0} C={C}, alt chunk "
@@ -923,6 +1068,10 @@ def main():
         if r["name"] == cuda_corr.LOOKUP_PYRAMID.name:
             kernels[-1]["box"] = r["box"]
             kernels[-1]["pipeline"] = on_pipe
+        if "sector_floor_ms" in r:                       # D and E
+            kernels[-1].update({k: r[k] for k in (
+                "sector_floor_ms", "checked_ms", "grid_sample", "smooth",
+                "corr_block_levels", "alt_corr_tile") if k in r})
     assert {k.name for k in cuda_corr.KERNELS} == {k["name"] for k in kernels}
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

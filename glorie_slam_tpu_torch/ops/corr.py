@@ -180,13 +180,23 @@ def lookup_pyramid(pyramid, coords, slots=None):
     """Multi-level lookup over a pixel-minor pyramid.
 
     pyramid: levels (S, hl, wl, npix); coords (E, ht, wd, 2) level-0
-    [x, y]. With ``slots`` (E,) int32, edge e reads level row slots[e]
-    (kernel E; S is the store's capacity); without, row e (kernel D,
-    S == E). Returns (E, ht, wd, L*49) float32. On the card the kernels
-    read bf16 planes, so a store of another dtype is cast first, as the
-    TPU kernels' wrappers do."""
+    [x, y]. With ``slots`` (E,), edge e reads level row slots[e] (kernel
+    E; S is the store's capacity); without, row e (kernel D, S == E).
+    ``slots`` is an int32 tensor, whose range the kernel's wrapper checks
+    (on the card, one device sync per level), or a host numpy array,
+    checked here once and copied to the card through pinned memory
+    without a sync (``CorrBlock``'s path). Returns (E, ht, wd, L*49)
+    float32. On the card the kernels read bf16 planes, so a store of
+    another dtype is cast first, as the TPU kernels' wrappers do."""
     E, ht, wd, _ = coords.shape
     c = coords.reshape(E, ht * wd, 2).float().contiguous()
+    dev = pyramid[0].device
+    checked = isinstance(slots, np.ndarray)
+    if checked:
+        cuda_corr.check_slots(slots, pyramid[0].shape[0])
+        slots = torch.from_numpy(slots.astype(np.int32))
+        if dev.type == "cuda":
+            slots = slots.pin_memory().to(dev, non_blocking=True)
     outs = []
     for lvl, plane in enumerate(pyramid):
         if plane.device.type == "cuda":
@@ -195,7 +205,8 @@ def lookup_pyramid(pyramid, coords, slots=None):
         if slots is None:
             outs.append(cuda_corr.lookup_plane(plane, cl))
         else:
-            outs.append(cuda_corr.lookup_plane_slots(plane, slots, cl))
+            outs.append(cuda_corr.lookup_plane_slots(plane, slots, cl,
+                                                     checked=checked))
     return torch.cat(outs, dim=-1).reshape(E, ht, wd, -1)
 
 
@@ -230,10 +241,10 @@ class CorrBlock:
                                                  + level.shape[1:])])
 
     def __call__(self, coords):
-        """coords (E, ht, wd, 2) -> (E, ht, wd, L*49) float32."""
-        slots = torch.as_tensor(self.slots, dtype=torch.int32,
-                                device=self.pyramid[0].device)
-        return lookup_pyramid(self.pyramid, coords, slots)
+        """coords (E, ht, wd, 2) -> (E, ht, wd, L*49) float32. The host
+        slots are range-checked on the host: the call makes no device
+        sync."""
+        return lookup_pyramid(self.pyramid, coords, self.slots)
 
     def _grow(self, need):
         new_cap = bucket(self.capacity + need)

@@ -23,7 +23,10 @@ Counterpart of ``glorie_slam_tpu/ops/pallas_corr.py``. Five kernels:
 * ``lookup_plane_slots`` (kernel E, the same source with a slot read)
   replaces ``lookup_pallas_slots`` (pallas_corr.py:477, pallas_call :507):
   D with plane row ``slots[e]`` of a fixed-capacity store.
-Bound on the card for C, D and E: bytes.
+Bound on the card for C, D and E: bytes. A pixel's cells in D's and E's
+planes lie npix elements apart, so their least traffic is the distinct
+32-byte sectors (16 consecutive pixels at one cell) that the windows touch
+(``plane_sector_stats``): each block reads each of them once, fully.
 
 Each wrapper takes its plain version for tensors on the CPU (the tests and
 CPU runs) and, for tensors on a CUDA device, launches the kernel or raises;
@@ -48,6 +51,11 @@ MAX_ROWS, MAX_COLS = 16384, 32768   # plane sizes kernels A and C accept
 TILE = (8, 8)       # kernel A's pixel tile (rows, columns): the MMA's 64 rows
 RUN = 32            # box cells per shared-memory stage: the MMA's 32 columns
 MARGIN = 16         # level coordinates clamp to [-MARGIN, size + MARGIN]
+# kernels D and E's sector rule, checked against the kernel's constants
+# when the library loads (``glorie_lookup_plane_geometry``)
+PLANE_GROUP = 16    # pixels per sector group: 16 bf16 fill a 32-byte sector
+PLANE_BAND = 4096   # row-major cells per band of the kernel's cell bitmap
+SECTOR_BYTES = 32
 
 
 @dataclass
@@ -100,6 +108,15 @@ def _lib():
             raise RuntimeError(
                 f"cuda_corr: TILE, RUN, MARGIN {(*TILE, RUN, MARGIN)} differ "
                 f"from the kernel's {tuple(geometry)}")
+        lib.glorie_lookup_plane_geometry.restype = None
+        lib.glorie_lookup_plane_geometry.argtypes = [ctypes.POINTER(_int)]
+        plane = (_int * 3)()
+        lib.glorie_lookup_plane_geometry(plane)
+        if tuple(plane) != (PLANE_GROUP, MARGIN, PLANE_BAND):
+            raise RuntimeError(
+                f"cuda_corr: PLANE_GROUP, MARGIN, PLANE_BAND "
+                f"{(PLANE_GROUP, MARGIN, PLANE_BAND)} differ from kernel "
+                f"D's {tuple(plane)}")
         lib._glorie_typed = True
     return lib
 
@@ -398,9 +415,10 @@ def lookup_level_plain(f1, f2, iis, jjs, coords, hl: int, wl: int):
 # kernels D and E: window lookup over precomputed correlation planes
 # ---------------------------------------------------------------------------
 
-def _launch_plane(kernel, planes, slots, coords):
+def _launch_plane(kernel, planes, slots, coords, checked=False):
     """Checks, then kernel D (``slots`` None) or E; bumps ``kernel``'s
-    count when it launches."""
+    count when it launches. ``checked``: the slots' range was checked on
+    the host, so the device check (one sync) is skipped."""
     name = kernel.name
     if planes.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {planes.device}")
@@ -408,6 +426,9 @@ def _launch_plane(kernel, planes, slots, coords):
     E = coords.shape[0]
     if coords.shape != (E, npix, 2):
         raise ValueError(f"{name}: coords must be (E, {npix}, 2)")
+    if hl * wl >= 2 ** 31 - PLANE_BAND:
+        raise ValueError(f"{name}: planes must hold under "
+                         f"2^31 - {PLANE_BAND} cells")
     tensors = [planes, coords] + ([] if slots is None else [slots])
     dtypes = [torch.bfloat16, torch.float32, torch.int32]
     _check_cuda(name, tensors, dtypes[:len(tensors)])
@@ -415,8 +436,8 @@ def _launch_plane(kernel, planes, slots, coords):
                       device=planes.device)
     if E == 0:
         return out
-    if slots is not None:
-        _check_slots(slots, S)
+    if slots is not None and not checked:
+        check_slots(slots, S)
     err = _lib().glorie_lookup_plane(
         planes.data_ptr(), None if slots is None else slots.data_ptr(),
         coords.data_ptr(), out.data_ptr(), E, hl, wl, npix,
@@ -441,26 +462,82 @@ def lookup_plane(planes, coords):
     return _launch_plane(LOOKUP_PLANE, planes, None, coords)
 
 
-def _check_slots(slots, S):
-    """Raise unless every slot is a row of a capacity-``S`` store: the
-    kernel reads ``slots[e]`` unchecked (one device sync on the card)."""
-    if slots.numel():
-        lo, hi = (int(v) for v in torch.aminmax(slots))
+def check_slots(slots, S):
+    """Raise unless every slot is a row of a capacity-``S`` store: kernel E
+    reads ``slots[e]`` unchecked. ``slots``: a tensor (on the card, one
+    device sync) or a host numpy array (no sync)."""
+    if len(slots):
+        if isinstance(slots, torch.Tensor):
+            lo, hi = (int(v) for v in torch.aminmax(slots))
+        else:
+            lo, hi = int(slots.min()), int(slots.max())
         if lo < 0 or hi >= S:
             raise ValueError(f"lookup_plane_slots: slots in [{lo}, {hi}] "
                              f"outside a store of {S} rows")
 
 
-def lookup_plane_slots(store, slots, coords):
+def lookup_plane_slots(store, slots, coords, checked=False):
     """``lookup_plane`` with edge e reading plane row ``slots[e]`` of the
     (S, hl, wl, npix) bf16 ``store``; slots: (E,) int32, each in [0, S)
-    (checked before the lookup; a slot outside raises ValueError)."""
+    (checked before the lookup; a slot outside raises ValueError). On the
+    card that check costs a device sync; ``checked=True`` says the caller
+    has already checked the same slots on the host (``check_slots`` on
+    their numpy copy, as ``corr.lookup_pyramid`` does) and skips it."""
     if slots.shape != (coords.shape[0],):
         raise ValueError("lookup_plane_slots: one slot per edge")
     if store.device.type == "cpu":
-        _check_slots(slots, store.shape[0])
+        check_slots(slots, store.shape[0])
         return lookup_plane_slots_plain(store, slots, coords)
-    return _launch_plane(LOOKUP_PLANE_SLOTS, store, slots, coords)
+    return _launch_plane(LOOKUP_PLANE_SLOTS, store, slots, coords, checked)
+
+
+def plane_sector_stats(coords, hl: int, wl: int, group: int = PLANE_GROUP):
+    """Kernels D and E's sector rule on the host: a second copy of the rule
+    in ``csrc/lookup_plane.cu``, a diagnostic only. Its constants are
+    checked against the kernel's when the library loads; the rule itself
+    is held only against a brute-force enumeration on the host.
+
+    coords: (E, npix, 2) [x, y] in level units over (hl, wl) planes. A
+    pixel's window starts at cell (floor(x) - 3, floor(y) - 3) of the
+    cleaned coordinates (NaN -> 0, clamped to [-MARGIN, size + MARGIN]);
+    its in-plane part is that 8x8 block clipped to the plane. Pixels
+    ``group * k`` .. ``group * k + group - 1`` form sector group k (the last
+    one may be short); at each cell that any of its pixels' windows touch,
+    the group reads one sector of ``SECTOR_BYTES``.
+
+    Returns {"groups": E * n_groups, "sectors": distinct (edge, group,
+    cell) triples, "sector_bytes", "cells_per_group": their mean,
+    "floor_bytes": the sectors plus the coords read and the float32
+    output written once (the least traffic of a kernel that reads the
+    planes in sectors)}."""
+    E, npix, _ = coords.shape
+    side = 2 * RADIUS + 2
+    n_groups = -(-npix // group)
+    cells = hl * wl
+    gid = (torch.arange(npix, device=coords.device) // group).view(1, -1, 1)
+    r = torch.arange(side, device=coords.device)
+    sectors = 0
+    for s in range(0, E, 8):       # 8 edges at a time bound the memory
+        c = torch.nan_to_num(coords[s:s + 8].float())
+        ox = torch.floor(c[..., 0].clamp(-MARGIN, wl + MARGIN)).long()
+        oy = torch.floor(c[..., 1].clamp(-MARGIN, hl + MARGIN)).long()
+        gx = ox[..., None] - RADIUS + r                     # (e, p, 8)
+        gy = oy[..., None] - RADIUS + r
+        ok = (((gy >= 0) & (gy < hl))[..., :, None]
+              & ((gx >= 0) & (gx < wl))[..., None, :]).flatten(2)
+        key = (gid * cells + (gy[..., :, None] * wl
+                              + gx[..., None, :]).flatten(2))
+        key = torch.where(ok, key, n_groups * cells).flatten(1)
+        seen = torch.zeros((key.shape[0], n_groups * cells + 1),
+                           dtype=torch.bool, device=coords.device)
+        seen.scatter_(1, key, True)
+        sectors += int(seen[:, :-1].sum())
+    sector_bytes = sectors * SECTOR_BYTES
+    out_bytes = E * npix * (2 * RADIUS + 1) ** 2 * 4
+    return {"groups": E * n_groups, "sectors": sectors,
+            "sector_bytes": sector_bytes,
+            "cells_per_group": sectors / max(E * n_groups, 1),
+            "floor_bytes": sector_bytes + coords.numel() * 4 + out_bytes}
 
 
 def lookup_plane_plain(planes, coords):

@@ -157,29 +157,83 @@ def test_lookup_level_matches_plain(dev, h0, w0, lvl, kind):
         assert not out.any()
 
 
-@pytest.mark.parametrize("hl,wl,npix", [(40, 80, 3200), (5, 10, 3200),
-                                        (7, 3, 50)])
+def _plane_coords(g, kind, E, hl, wl, npix, dev):
+    """Coords (E, npix, 2) in the level units of (hl, wl) planes: uniform
+    as ``_coords``, else ``_flow`` over the pixel grid of a level 0 that
+    halves down to hl (13x21 for npix = 273), cut to the first npix
+    pixels (npix = 256: an ``alt_corr_chunk`` tile of a 40x80 grid)."""
+    if kind in ("uniform", "repeated"):
+        return _coords(g, E, npix, wl, hl, dev)
+    h0, w0 = (13, 21) if npix == 273 else (40, 80)
+    return (_flow(g, kind, E, h0, w0)[:, :npix] * (hl / h0)).contiguous(
+        ).to(dev)
+
+
+@pytest.mark.parametrize("hl,wl,npix,E,kind", [
+    (40, 80, 3200, 6, "uniform"), (5, 10, 3200, 6, "uniform"),
+    (7, 3, 50, 6, "uniform"), (40, 80, 3200, 8, "smooth"),
+    (5, 10, 3200, 8, "smooth"), (40, 80, 3200, 4, "incoherent"),
+    (40, 80, 3200, 4, "outliers"), (13, 21, 273, 5, "smooth"),
+    (40, 80, 256, 8, "smooth"), (40, 80, 3200, 1, "smooth"),
+    (20, 40, 3200, 6, "repeated")])
 @pytest.mark.parametrize("slots", [False, True])
-def test_lookup_plane_matches_plain(dev, hl, wl, npix, slots):
+def test_lookup_plane_matches_plain(dev, hl, wl, npix, E, kind, slots):
+    """Kernels D and E on the cases of kernel A's test: smooth flow at
+    levels 0 and 3, incoherent flow over the whole plane (many passes over
+    a group's cells), NaN and far off-plane centres inside one 16-pixel
+    group ("outliers"), npix = 273 (no multiple of 8: narrower sector
+    pieces, a ragged last group), npix = 256 (an ``alt_corr_chunk``
+    tile), E = 1, and "repeated": E reads rows of a store of 4E rows with
+    repeats (D: the same lookup over E rows). E is also launched with
+    ``checked=True`` (no range check on the card) and must give the same
+    values."""
     g = torch.Generator().manual_seed(hl * wl + slots)
-    E = 6
-    S = 10 if slots else E
+    S = (10 if kind == "uniform" else 4 * E) if slots else E
     store = torch.randn((S, hl, wl, npix), generator=g).to(
         dev, torch.bfloat16)
-    coords = _coords(g, E, npix, wl, hl, dev)
+    coords = _plane_coords(g, kind, E, hl, wl, npix, dev)
     if slots:
-        sl = torch.randperm(S, generator=g)[:E].to(dev, torch.int32)
+        if kind == "repeated":
+            sl = torch.randint(0, S, (E,), generator=g)
+            sl[1::2] = sl[0]
+        else:
+            sl = torch.randperm(S, generator=g)[:E]
+        sl = sl.to(dev, torch.int32)
         kernel = cuda_corr.LOOKUP_PLANE_SLOTS
         before = kernel.launches
         out = cuda_corr.lookup_plane_slots(store, sl, coords)
+        again = cuda_corr.lookup_plane_slots(store, sl, coords, checked=True)
+        assert kernel.launches == before + 2
+        assert torch.equal(out, again)
         ref = cuda_corr.lookup_plane_slots_plain(store, sl, coords)
     else:
         kernel = cuda_corr.LOOKUP_PLANE
         before = kernel.launches
         out = cuda_corr.lookup_plane(store, coords)
+        assert kernel.launches == before + 1
         ref = cuda_corr.lookup_plane_plain(store, coords)
-    assert kernel.launches == before + 1
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_corr_block_lookup_makes_no_sync(dev):
+    """CorrBlock checks its host slots on the host and copies them without
+    blocking: its lookup runs under the sync debug mode "error", and
+    gives what the wrapper with its checked device slots gives."""
+    g = torch.Generator().manual_seed(7)
+    E, h0, w0 = 6, 16, 24
+    fmap = torch.randn((E, 128, h0, w0), generator=g).to(dev, torch.bfloat16)
+    block = corr.CorrBlock(fmap, fmap.flip(0))[[4, 0, 2, 5]]
+    coords = (_flow(g, "smooth", 4, h0, w0)).reshape(4, h0, w0, 2).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = block(coords)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    slots = torch.as_tensor(block.slots, dtype=torch.int32, device=dev)
+    torch.testing.assert_close(
+        out, corr.lookup_pyramid(block.pyramid, coords, slots), atol=0,
+        rtol=0)
 
 
 def test_wrappers_raise_on_bad_inputs(dev):
