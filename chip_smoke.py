@@ -46,7 +46,19 @@ Phases, each printing its wall seconds:
    level 0 of f2 a view of f1 as on the main path; after the run A is
    held against its plain version on them and timed beside the library
    form and its bound (A's ``pipeline`` entry in the kernels line). The
-   peak memory includes that copy (``probe_capture_bytes``).
+   peak memory includes that copy (``probe_capture_bytes``);
+6. mapping step: one mapping train step (render, losses, gradients, Adam)
+   from one 120x160 state at the Replica widths on the card and on the CPU
+   (``mapping_step_check``), in both stages, with the kNN's disagreement;
+7. mapping: ``SLAM(cfg, stream).run()`` with the mapper on (asynchronous,
+   on its worker's CUDA stream) at 320x640 and the Replica widths, with the
+   cuts ``MAPPING_FRAMES`` / ``MAPPING_CUTS`` printed (the tracking config
+   is bench.py's, multiview filter 0.01 included): ``MapProbe`` gives the
+   mapper's seconds per keyframe, the mean train-step ms and the kNN's
+   share (CUDA events on the worker's stream); then anchors and points,
+   ``final_refine`` seconds, peak memory, the first and last losses; the
+   geo loss must fall over the first mapped keyframe, and ``final_refine``
+   must run its optimisation. Kernels A and B launch again in its tracking.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -68,6 +80,12 @@ FP32_FLOPS = 67e12               # H100 SXM float32 outside tensor cores
 # bench.py runs 60 frames; 40 keep the whole script well inside its time
 # limit while window=25 loop closure and ba_freq=12 online BA both fire
 PIPELINE_FRAMES = 40
+# the mapping phase at the Replica widths: 16 frames (warmup 8, so 8-9
+# mapped keyframes) and the optimisation cut from 1500 / 400 / 400
+# iterations so that the phase takes minutes, not hours
+MAPPING_FRAMES = 16
+MAPPING_CUTS = {"iters_first": 40, "geo_iter_first": 15, "iters": 10,
+                "pretrained": None}
 
 
 def phase(name, t0):
@@ -996,6 +1014,370 @@ def pipeline(n_frames, H=320, W=640):
         lookup_pyramid_event_ms_per_launch=a_ms / a_launches), probe.captured
 
 
+# ---------------------------------------------------------------------------
+# mapping: one train step card vs CPU, and the full-width mapping phase
+# ---------------------------------------------------------------------------
+
+def oracle_video(stream, cfg, n, device):
+    """A DepthVideo holding frames 0..n-1 of a synthetic stream at their
+    true poses and full-resolution depths, every pixel valid and every frame
+    marked for re-anchoring: the state a mapper reads, without a tracker."""
+    import numpy as np
+    import torch
+    from glorie_slam_tpu_torch.core.depth_video import DepthVideo
+
+    v = DepthVideo(cfg, device=device)
+    v.counter = n
+    v.timestamp[:n] = torch.arange(n, dtype=torch.float32)
+    v.poses[:n] = torch.as_tensor(np.array(stream.poses_w2c[:n]))
+    v.disps_up[:n] = torch.as_tensor(1.0 / np.stack(stream.depths[:n]))
+    v.intrinsics = torch.as_tensor(stream.intrinsics / 8.0, device=device)
+    v._valid_depth_mask[:n] = True
+    v.npc_dirty[:n] = True
+    return v
+
+
+def step_mapper(cfg, stream, video):
+    """A ``Mapper`` over ``video`` with the SLAM attributes it reads."""
+    import types
+    from glorie_slam_tpu_torch.mapping.mapper import Mapper
+    from glorie_slam_tpu_torch.slam import update_cam
+    from glorie_slam_tpu_torch.utils.printer import Printer
+
+    H, W, fx, fy, cx, cy = update_cam(cfg)
+    shim = types.SimpleNamespace(video=video, printer=Printer(0, True),
+                                 output=cfg["data"]["output"], H=H, W=W,
+                                 fx=fx, fy=fy, cx=cx, cy=cy, stream=stream)
+    return Mapper(shim, cfg)
+
+
+def mapping_step_state(H=120, W=160, n_frames=5):
+    """A CPU mapper at the Replica widths (c_dim 32, 8 neighbours, 10
+    samples per ray, dynamic radii, pixel warping) over the true state of a
+    120x160 synthetic stream, frames 0 and 1 anchored, and one batch of
+    4096 rays over frames 0-4 (the padded bucket of 5 x 800 pixels) with a
+    frustum gradient mask."""
+    import numpy as np
+    import torch
+    from glorie_slam_tpu_torch.mapping import sampling
+    from glorie_slam_tpu_torch.utils.buckets import bucket
+    from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
+                                                       base_cfg, mapping_cfg)
+
+    stream = SyntheticStream(n_frames=n_frames, H=H, W=W, seed=5)
+    cfg = base_cfg(H=H, W=W, buffer=16, out=tempfile.gettempdir())
+    cfg.update(mapping_cfg())
+    cfg["mapping"].update(pretrained=None, pixels_adding=2000,
+                          pixels_based_on_color_grad=400)
+    cfg["pointcloud"]["capacity"] = 1 << 16
+    m = step_mapper(cfg, stream, oracle_video(stream, cfg, n_frames, "cpu"))
+    for k in (0, 1):
+        m.dynamic_r_add, m.dynamic_r_query = sampling.dynamic_radius_maps(
+            stream.frames[k], cfg)
+        c2w, _, droid = m.get_c2w_and_depth(k, k, None)
+        m.anchor_points(droid.numpy(), stream.frames[k], c2w, k)
+    frames = []
+    for k in range(n_frames):
+        _, r_query = sampling.dynamic_radius_maps(stream.frames[k], cfg)
+        depth = stream.depths[k]
+        frames.append(dict(render_depth=depth, render_mask=depth > 0,
+                           gt_color=stream.frames[k], c2w=m._c2w_nerf(k),
+                           r_query=r_query / 3.0 * depth))
+    c2ws = torch.as_tensor(np.stack([f["c2w"] for f in frames]))
+    batch = m._ray_batch(frames, 800, c2ws, bucket(800 * n_frames))
+    feat_mask = m._frustum_grad_mask(frames[-1]["c2w"],
+                                     frames[-1]["render_depth"])
+    imgs = torch.as_tensor(np.stack(stream.frames[:n_frames]))
+    return cfg, stream, m, batch, c2ws, imgs, feat_mask
+
+
+def mapping_step(m, batch, c2ws, imgs, feat_mask, stage):
+    """One ``_map_train_step`` of mapper ``m`` from a fresh optimiser ->
+    (losses, {name: gradient}, {name: parameter}) on the host."""
+    import torch
+    from glorie_slam_tpu_torch.mapping import mapper as mapper_mod
+
+    geo, col = m.npc.geo_feats, m.npc.col_feats
+    opt = mapper_mod.make_optimizer(m.decoders, geo, col)
+    F = c2ws.shape[0]
+    met = mapper_mod._map_train_step(
+        m.decoders, m.rcfg, opt, geo, col, (0.005, 0.03, 0.005),
+        m.npc.cloud_pos, m.npc.count, *batch,
+        torch.ones(F, dtype=torch.bool, device=m.device), c2ws, imgs,
+        feat_mask, {"geo_decoder": 0.0, "color_decoder": 1.0},
+        (m.fx, m.fy, m.cx, m.cy), m.w_losses, stage, True, m.W, m.H)
+    named = [("geo_feats", geo), ("col_feats", col)] + list(
+        m.decoders.named_parameters())
+    grads = {k: p.grad.cpu().clone() for k, p in named}
+    params = {k: p.detach().cpu().clone() for k, p in named}
+    mapper_mod.release(m.decoders, geo, col)
+    return {k: float(v) for k, v in met.items()}, grads, params
+
+
+def npc_arrays(npc):
+    """A cloud's state as numpy, for ``NeuralPointCloud.load_arrays``."""
+    names = ("cloud_pos", "geo_feats", "col_feats", "input_pos", "input_rgb",
+             "input_depth", "input_video_idx", "input_i", "input_j",
+             "full_pcl", "full_mask")
+    out = {k: getattr(npc, k).cpu() for k in names}
+    out["full_pcl"] = out["full_pcl"].float()
+    out = {k: v.numpy() for k, v in out.items()}
+    out.update(count=npc.count, count_in=npc.count_in)
+    return out
+
+
+def mapping_step_check(device="cuda"):
+    """One mapping train step (render -> losses -> gradients -> Adam) from
+    one state on the card and on the CPU (the path the tests hold against
+    the JAX package), in each stage, at the tolerances
+    ``tests/test_torch_mapper.py`` holds the port to against the JAX
+    package, with no entry allowed outside them: losses 1e-5 relative;
+    gradients per entry 1e-3 relative plus two float32 spacings of the
+    parameter and 1e-3 of the tensor's largest entry; parameters after
+    Adam's first step 2e-4, except where the gradient lies within 10x its
+    tolerance of zero, where the sign is rounding and the step may land
+    anywhere within twice the learning rate. The renderer's kNN must pick
+    the same neighbours on both devices (``knn_flips``): anchors are sampled
+    with replacement, so copies of a point tie exactly in distance, and
+    both devices list them lowest index first."""
+    import numpy as np
+    import torch
+
+    cfg, stream, cpu_m, batch, c2ws, imgs, feat_mask = mapping_step_state()
+    dev = torch.device(device)
+    gpu_m = step_mapper(cfg, stream, oracle_video(stream, cfg, c2ws.shape[0],
+                                                  dev))
+    lrs = {"geo_feats": 0.03, "col_feats": 0.005}       # decoders: 0.005
+    res = {"count": cpu_m.npc.count, "rays": int(batch[0].shape[0])}
+    for stage in ("geometry", "color"):
+        gpu_m.npc.load_arrays(npc_arrays(cpu_m.npc))
+        gpu_m.decoders.load_state_dict(cpu_m.decoders.state_dict())
+        snapshot = ({k: v.clone() for k, v in cpu_m.decoders.state_dict()
+                     .items()}, cpu_m.npc.geo_feats.clone(),
+                    cpu_m.npc.col_feats.clone())
+        before = {"geo_feats": snapshot[1], "col_feats": snapshot[2],
+                  **snapshot[0]}
+        out_g = mapping_step(gpu_m, [x.to(dev) for x in batch], c2ws.to(dev),
+                             imgs.to(dev), feat_mask.to(dev), stage)
+        torch.cuda.synchronize()
+        out_c = mapping_step(cpu_m, batch, c2ws, imgs, feat_mask, stage)
+        # restore the CPU state for the next stage
+        cpu_m.decoders.load_state_dict(snapshot[0])
+        cpu_m.npc.geo_feats.copy_(snapshot[1])
+        cpu_m.npc.col_feats.copy_(snapshot[2])
+        loss_rel = max(abs(out_g[0][k] - out_c[0][k])
+                       / max(abs(out_c[0][k]), 1e-12)
+                       for k in ("geo_loss", "color_loss", "warp_loss"))
+        if loss_rel > 1e-5 or out_c[0]["warp_loss"] <= 0:
+            raise AssertionError(f"mapping step losses ({stage}): card "
+                                 f"{out_g[0]}, CPU {out_c[0]}")
+        stats = {}
+        for k, g_c in out_c[1].items():
+            g_c, g_g = g_c.numpy(), out_g[1][k].numpy()
+            p0 = before[k].numpy()
+            tol = 2 * np.spacing(np.abs(p0)) + 1e-3 * np.abs(g_c).max()
+            bad_g = np.abs(g_g - g_c) > tol + 1e-3 * np.abs(g_c)
+            near0 = np.abs(g_c) < 10 * tol
+            dp = np.abs(out_g[2][k].numpy() - out_c[2][k].numpy())
+            bad_p = np.where(near0, dp > 2 * lrs.get(k, 0.005) + 2e-4,
+                             dp > 2e-4)
+            stats[k] = (int(bad_g.sum()), int(bad_p.sum()),
+                        int((g_c != 0).sum()))
+        off = sum(b + c for b, c, _ in stats.values())
+        live = sum(nz for _, _, nz in stats.values())
+        flips = knn_flips(cpu_m, batch, dev)
+        res[stage] = dict(losses_card=out_g[0], losses_cpu=out_c[0],
+                          max_loss_rel=loss_rel, entries_off=off,
+                          live_entries=live, knn_probes=flips)
+        if off or flips["neighbour_lists"] or flips["radius_counts"]:
+            raise AssertionError(f"mapping step ({stage}): {res[stage]}, "
+                                 f"per tensor (grads off, params off, live):"
+                                 f" {stats}")
+    res["tolerance"] = (
+        "losses 1e-5 rel; every entry: gradients 1e-3 rel + 2 spacings of "
+        "the parameter + 1e-3 max, parameters 2e-4 (near-zero gradients: "
+        "within 2 lr); kNN neighbour lists equal")
+    return res
+
+
+def knn_flips(m, batch, dev):
+    """The renderer's first kNN (the 25 near-cloud probes of every ray) on
+    the card and on the CPU: the rows whose neighbour list or radius count
+    differs, and the largest distance difference."""
+    import torch
+    from glorie_slam_tpu_torch.mapping.point_cloud import linspace
+    from glorie_slam_tpu_torch.ops import knn
+
+    rays_o, rays_d, depth = batch[0], batch[1], batch[2]
+    far = torch.minimum(5 * torch.mean(depth), torch.max(depth * 1.2))
+    z = linspace(m.rcfg.near_end, far, 25)
+    pts = (rays_o[:, None] + rays_d[:, None] * z[None, :, None]).reshape(-1, 3)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        D, I = knn.knn_search(pts.to(d), m.npc.cloud_pos.to(d), m.npc.count)
+        nn = knn.neighbor_count(D, m.rcfg.radius_query)
+        out.append((D.cpu(), I.cpu(), nn.cpu()))
+    (Dg, Ig, ng), (Dc, Ic, nc) = out
+    return {"rows": int(pts.shape[0]),
+            "neighbour_lists": int((Ig != Ic).any(1).sum()),
+            "radius_counts": int((ng != nc).sum()),
+            "max_distance_diff": float((Dg - Dc).abs().max())}
+
+
+class MapProbe:
+    """Wraps ``mapper._map_train_step`` and ``knn.knn_search`` from outside
+    the package for one run: CUDA events around every call (recorded on the
+    calling thread's stream, so the asynchronous worker's stream when it
+    maps), the kNN calls split into those inside a train step and the rest;
+    and each mapped keyframe's wall time (its ``on_keyframe`` call, ended
+    with a synchronize of its stream)."""
+
+    def __init__(self, mapper):
+        import threading
+        from glorie_slam_tpu_torch.mapping import mapper as mapper_mod
+        from glorie_slam_tpu_torch.ops import knn as knn_mod
+        self.mods = (mapper_mod, knn_mod)
+        self.inner = (mapper_mod._map_train_step, knn_mod.knn_search)
+        self.mapper, self.inner_kf = mapper, mapper.on_keyframe
+        self.local = threading.local()
+        self.steps, self.knn_in, self.knn_out, self.kf_s = [], [], [], []
+
+    def _timed(self, fn, sink, *a, **kw):
+        import torch
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = fn(*a, **kw)
+        e.record()
+        sink.append((s, e))
+        return out
+
+    def step(self, *a, **kw):
+        self.local.in_step = True
+        try:
+            return self._timed(self.inner[0], self.steps, *a, **kw)
+        finally:
+            self.local.in_step = False
+
+    def knn(self, *a, **kw):
+        sink = (self.knn_in if getattr(self.local, "in_step", False)
+                else self.knn_out)
+        return self._timed(self.inner[1], sink, *a, **kw)
+
+    def on_keyframe(self, info):
+        import torch
+        t0 = time.perf_counter()
+        self.inner_kf(info)
+        torch.cuda.current_stream().synchronize()
+        if not info.get("end"):
+            self.kf_s.append(time.perf_counter() - t0)
+
+    def __enter__(self):
+        self.mods[0]._map_train_step = self.step
+        self.mods[1].knn_search = self.knn
+        self.mapper.on_keyframe = self.on_keyframe
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0]._map_train_step, self.mods[1].knn_search = self.inner
+        self.mapper.on_keyframe = self.inner_kf
+
+    @staticmethod
+    def ms(events):
+        return [s.elapsed_time(e) for s, e in events]
+
+
+def mapping_phase(n_frames, H=320, W=640, device="cuda"):
+    """``SLAM.run`` with mapping at 320x640 (see ``MAPPING_CUTS``)."""
+    import numpy as np
+    import torch
+    from glorie_slam_tpu_torch import build
+    from glorie_slam_tpu_torch.ops import cuda_corr
+    from glorie_slam_tpu_torch.slam import SLAM
+    from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
+                                                       bench_cfg, mapping_cfg)
+
+    stream = SyntheticStream(n_frames=n_frames, H=H, W=W, seed=3,
+                             motion_scale=0.02, trajectory="circuit")
+    os.makedirs(build.BUILD_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+        cfg = bench_cfg(H=H, W=W, buffer=400, out=tmp)
+        cfg.update(mapping_cfg())
+        cfg["only_tracking"] = False
+        cfg["mapping"].update(MAPPING_CUTS)
+        cfg["mono_prior"] = {"predict_online": False}
+        priors = os.path.join(tmp, f"{cfg['scene']}_priors", "depths")
+        os.makedirs(priors)
+        for i, depth in enumerate(stream.depths):
+            np.save(os.path.join(priors, f"{i:05d}.npy"), depth)
+
+        slam = SLAM(cfg, stream, device=device)
+        if slam.async_mapper is None or (slam.async_mapper.stream is None
+                                         and device == "cuda"):
+            raise AssertionError("the mapper is not on its worker stream")
+        for k in cuda_corr.KERNELS:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with MapProbe(slam.mapper) as probe:
+            slam.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k.name: k.launches for k in cuda_corr.KERNELS}
+        out = slam.output
+        files = {f: os.path.getsize(os.path.join(out, f)) for f in (
+            "final_point_cloud.npy", "npc_cloud.npy", "final_point_cloud.ply",
+            "video.npz")}
+        cloud = np.load(os.path.join(out, "final_point_cloud.npy"))
+        with open(os.path.join(out, "logs", "phase_times.json")) as f:
+            phases = json.load(f)["phases"]
+    mapper, stats = slam.mapper, slam.async_mapper.stats
+    steps = MapProbe.ms(probe.steps)
+    knn_in, knn_out = MapProbe.ms(probe.knn_in), MapProbe.ms(probe.knn_out)
+    hist = mapper.loss_history
+    first_kf = [h for h in hist if h["idx"] == hist[0]["idx"]
+                and not h["refine"]]
+    if len(first_kf) < 2 or not first_kf[-1]["geo"] < first_kf[0]["geo"]:
+        raise AssertionError(f"geo loss did not fall over the first "
+                             f"keyframe's optimisation: {first_kf}")
+    if not any(h["refine"] for h in hist):
+        raise AssertionError("final_refine ran no optimisation step")
+    if stats["mapped"] < 4 or len(mapper.keyframe_dict) < 2:
+        raise AssertionError(f"too few keyframes mapped: {stats}")
+    if cloud.shape != (mapper.npc.count_in, 6) or not np.isfinite(cloud).all():
+        raise AssertionError("final point cloud has the wrong shape or is "
+                             "not finite")
+    feats = mapper.npc.geo_feats[:mapper.npc.count]
+    if not bool(torch.isfinite(feats).all()):
+        raise AssertionError("non-finite features")
+    for name in ("lookup_pyramid", "depth_agree"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched while "
+                                 "mapping")
+    return dict(
+        frames=n_frames, keyframes=slam.video.counter, cuts=MAPPING_CUTS,
+        multiview_thresh=cfg["tracking"]["multiview_filter"]["thresh"],
+        mapped_keyframes=stats["mapped"],
+        mapped_in_keyframe_dict=len(mapper.keyframe_dict),
+        mapper_s_per_keyframe=[round(x, 4) for x in probe.kf_s],
+        mapper_mean_s_per_keyframe=float(np.mean(probe.kf_s)),
+        worker_busy_s=stats["busy_s"], tracker_block_s=stats["block_s"],
+        mean_lag_s=float(np.mean(stats["lag_s"])),
+        train_steps=len(steps), train_step_mean_ms=float(np.mean(steps)),
+        train_step_total_s=sum(steps) / 1e3,
+        knn_in_steps_ms=sum(knn_in), knn_calls_in_steps=len(knn_in),
+        knn_share_of_steps=sum(knn_in) / sum(steps),
+        knn_outside_steps_ms=sum(knn_out), knn_calls_outside=len(knn_out),
+        anchors=mapper.npc.count_in, points=mapper.npc.count,
+        final_refine_s=phases["final_refine"]["total_s"],
+        mapper_phase_s=phases["mapper"]["total_s"],
+        frontend_s=phases["frontend"]["total_s"], run_wall_s=wall,
+        peak_memory_bytes=peak, launches=launches,
+        loss_first=hist[0], loss_last=hist[-1],
+        first_keyframe_geo=[first_kf[0]["geo"], first_kf[-1]["geo"]],
+        files=files)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1050,6 +1432,20 @@ def main():
     print("[pipeline] kernel A on captured inputs: " + json.dumps(on_pipe),
           flush=True)
     phase("pipeline", t0)
+
+    t0 = time.perf_counter()
+    step = mapping_step_check()
+    print("[mapping step] " + json.dumps(step), flush=True)
+    phase("mapping step", t0)
+
+    t0 = time.perf_counter()
+    mapping = mapping_phase(MAPPING_FRAMES)
+    print("[mapping] " + json.dumps(mapping), flush=True)
+    print(f"[mapping] cuts: {MAPPING_FRAMES} frames; {MAPPING_CUTS} "
+          "(from iters_first 1500, geo_iter_first 400, iters 400); every "
+          "width is Replica's; tracking as bench.py's config (multiview "
+          f"filter {mapping['multiview_thresh']}, no final BA)", flush=True)
+    phase("mapping", t0)
 
     # A and B launch on the tracking path (the pipeline); C, D and E on
     # the volume path

@@ -5,13 +5,17 @@ fixed-capacity tensors on one device, updated in place. Layouts follow the
 JAX package: images and features are NHWC; fmaps/nets/inps are bf16; the
 level-0 correlation store is ``fmaps`` itself viewed as (N, h8*w8, 128)
 rows, and the pooled levels are kept beside it, refreshed as frames land.
-``counter`` and the dirty flags are host-side.
+``counter`` and the dirty flags are host-side: ``dirty`` marks frames whose
+full-resolution validity mask is stale, ``npc_dirty`` frames whose neural
+points the mapper must re-anchor (it clears them after the deform).
 
 ``ba`` dispatches DSPO stage 1 (pose + depth Gauss-Newton) and stage 2
 (depth + mono scale/shift) as the JAX package does, including the mono_thres
 edge filter and the fall-back to stage 1 when stage 2 has no usable edge.
 The full-resolution multiview validity mask is refreshed lazily, on read.
 """
+
+import threading
 
 import numpy as np
 import torch
@@ -67,6 +71,10 @@ class DepthVideo:
         self.corr_p = [z(buf, h, w, 128, dtype=bf) for h, w in dims]
 
         self.dirty = np.zeros(buf, bool)
+        self.npc_dirty = np.zeros(buf, bool)
+        # guards the mapper thread's scale/shift row writes
+        # (``set_depth_scale_shift``) against keyframe removal
+        self.state_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     # appends / accessors
@@ -145,19 +153,29 @@ class DepthVideo:
 
     def set_dirty(self, start, end):
         self.dirty[start:end] = True
+        self.npc_dirty[start:end] = True
+
+    def set_depth_scale_shift(self, ix, s, q):
+        """Write frame ix's mono-prior scale and shift (the mapper's
+        alignment)."""
+        with self.state_lock:
+            self.depth_scale[ix] = s
+            self.depth_shift[ix] = q
 
     def remove_keyframe(self, ix):
         """Copy frame ix + 1 over frame ix (the caller remaps edges and the
         counter), as the JAX package does."""
-        for name in ("timestamp", "images", "poses", "disps", "disps_up",
-                     "mono_disps", "depth_scale", "depth_shift",
-                     "_valid_depth_mask", "valid_depth_mask_small", "fmaps",
-                     "nets", "inps"):
-            arr = getattr(self, name)
-            arr[ix] = arr[ix + 1]
-        for store in self.corr_p:
-            store[ix] = store[ix + 1]
+        with self.state_lock:
+            for name in ("timestamp", "images", "poses", "disps", "disps_up",
+                         "mono_disps", "depth_scale", "depth_shift",
+                         "_valid_depth_mask", "valid_depth_mask_small",
+                         "fmaps", "nets", "inps"):
+                arr = getattr(self, name)
+                arr[ix] = arr[ix + 1]
+            for store in self.corr_p:
+                store[ix] = store[ix + 1]
         self.dirty[ix] = self.dirty[ix + 1]
+        self.npc_dirty[ix] = self.npc_dirty[ix + 1]
 
     # ------------------------------------------------------------------
     # geometric ops
@@ -320,6 +338,17 @@ class DepthVideo:
     # ------------------------------------------------------------------
     # export
     # ------------------------------------------------------------------
+
+    def get_pose_c2w(self, index):
+        """Frame ``index``'s 4x4 camera-to-world matrix (numpy)."""
+        return lie.to_matrix(lie.inv(self.poses[index])).cpu().numpy()
+
+    def get_depth_and_pose(self, index):
+        """(depth (H, W), multiview validity (H, W), c2w (4, 4)) of frame
+        ``index``, numpy."""
+        est_depth = (1.0 / self.disps_up[index].clamp(min=1e-8)).cpu().numpy()
+        mask = self.valid_depth_mask[index].cpu().numpy()
+        return est_depth, mask, self.get_pose_c2w(index)
 
     def save_video(self, path):
         t = self.counter

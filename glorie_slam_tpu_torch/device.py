@@ -6,8 +6,9 @@ is used only when the caller asks for it (the tests do).
 Float32 settings, stated once here and applied by ``resolve_device``:
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
 ``torch.backends.cudnn.allow_tf32 = False``. The bundle adjustment's
-Hessian/Schur products and the geometry need full float32 (the JAX package
-runs them at ``precision=HIGHEST``); the tracker net runs in bf16 on the
+Hessian/Schur products, the geometry and the mapper's kNN need full float32
+(the JAX package runs them at ``precision=HIGHEST``; ``ops/knn.py`` refuses
+to run with TF32 on); the tracker net runs in bf16 on the
 card, where TF32 does not apply either way.
 """
 

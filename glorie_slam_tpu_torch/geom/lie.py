@@ -64,6 +64,35 @@ def quat_to_matrix(q):
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def quat_from_matrix(R):
+    """Rotation matrix -> quaternion (xyzw), branchless Shepperd's method."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS)) * 2
+
+    s0 = root(tr + 1.0)                              # w largest
+    c0 = torch.stack([(m21 - m12) / s0, (m02 - m20) / s0,
+                      (m10 - m01) / s0, 0.25 * s0], -1)
+    s1 = root(1.0 + m00 - m11 - m22)                 # x largest
+    c1 = torch.stack([0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1,
+                      (m21 - m12) / s1], -1)
+    s2 = root(1.0 + m11 - m00 - m22)                 # y largest
+    c2 = torch.stack([(m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2,
+                      (m02 - m20) / s2], -1)
+    s3 = root(1.0 + m22 - m00 - m11)                 # z largest
+    c3 = torch.stack([(m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3,
+                      (m10 - m01) / s3], -1)
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    q = torch.where((tr > 0.0)[..., None], c0,
+                    torch.where(cond1, c1, torch.where(cond2, c2, c3)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
 def mul(a, b):
     """Compose: (a ∘ b)(x) = a(b(x))."""
     a, b = torch.broadcast_tensors(a, b)
@@ -90,6 +119,11 @@ def act(pose, X):
     X = X.expand(shape + (4,))
     v = quat_rotate(pose[..., 3:7], X[..., :3]) + X[..., 3:4] * pose[..., :3]
     return torch.cat([v, X[..., 3:4]], dim=-1)
+
+
+def act3(pose, X):
+    """Act on ordinary 3D points: R x + t."""
+    return quat_rotate(pose[..., 3:7], X) + pose[..., :3]
 
 
 def _so3_coeffs(theta_sq):
@@ -195,6 +229,12 @@ def to_matrix(pose):
                          device=pose.device)
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def from_matrix(T):
+    """4x4 homogeneous matrix -> 7-vector."""
+    q = quat_from_matrix(T[..., :3, :3])
+    return torch.cat([T[..., :3, 3], q], dim=-1)
 
 
 def scale_translation(pose, s):

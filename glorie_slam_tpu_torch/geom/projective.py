@@ -33,14 +33,17 @@ def iproj(disps, intrinsics):
     return torch.stack([X, Y, torch.ones_like(disps), disps], dim=-1)
 
 
-def proj(Xs, intrinsics):
-    """Project homogeneous points -> pixel coords (..., 2)."""
+def proj(Xs, intrinsics, return_depth=False):
+    """Project homogeneous points -> pixel coords (..., 2), or (..., 3)
+    with the projected inverse depth appended."""
     fx, fy, cx, cy = intrinsics.unbind(-1)
-    X, Y, Z, _ = Xs.unbind(-1)
+    X, Y, Z, D = Xs.unbind(-1)
     Z = torch.where(Z < 0.5 * MIN_DEPTH, torch.ones_like(Z), Z)
     d = 1.0 / Z
     x = fx * (X * d) + cx
     y = fy * (Y * d) + cy
+    if return_depth:
+        return torch.stack([x, y, D * d], dim=-1)
     return torch.stack([x, y], dim=-1)
 
 
@@ -51,10 +54,12 @@ def rel_poses(poses, ii, jj):
     return torch.where((ii == jj)[:, None], stereo, Gij)
 
 
-def projective_transform(poses, disps, intrinsics, ii, jj, jacobian=False):
+def projective_transform(poses, disps, intrinsics, ii, jj, jacobian=False,
+                         return_depth=False):
     """Map pixels of frames ``ii`` into frames ``jj``.
 
-    Returns coords (E, ht, wd, 2), valid (E, ht, wd, 1) and, with
+    Returns coords (E, ht, wd, 2) (3 with ``return_depth``: the projected
+    inverse depth), valid (E, ht, wd, 1) and, with
     ``jacobian``, (Ji, Jj, Jz) of shapes (E, ht, wd, 2, 6) x2 and
     (E, ht, wd, 2, 1).
     """
@@ -62,7 +67,7 @@ def projective_transform(poses, disps, intrinsics, ii, jj, jacobian=False):
     Gij = rel_poses(poses, ii, jj)
     Gb = Gij[:, None, None, :]
     X1 = lie.act(Gb, X0)
-    x1 = proj(X1, intrinsics)
+    x1 = proj(X1, intrinsics, return_depth=return_depth)
     valid = ((X1[..., 2] > MIN_DEPTH) & (X0[..., 2] > MIN_DEPTH)).to(
         disps.dtype)[..., None]
     if not jacobian:
@@ -87,3 +92,28 @@ def projective_transform(poses, disps, intrinsics, ii, jj, jacobian=False):
     Jz1 = fy * (tij[..., 1] * d - tij[..., 2] * Y * d2)
     Jz = torch.stack([Jz0, Jz1], dim=-1)[..., None]
     return x1, valid, (Ji, Jj, Jz)
+
+
+def induced_flow(poses, disps, intrinsics, ii, jj):
+    """Optical flow induced by camera motion -> (flow (E, ht, wd, 2),
+    valid (E, ht, wd, 1))."""
+    ht, wd = disps.shape[-2:]
+    coords0 = coords_grid(ht, wd, disps.dtype, disps.device)
+    coords1, valid = projective_transform(poses, disps, intrinsics, ii, jj)
+    return coords1[..., :2] - coords0, valid
+
+
+def iproj_world(poses, disps, intrinsics):
+    """Backproject disparity maps (N, ht, wd) with world->camera poses
+    (N, 7) to world points (N, ht, wd, 3): T^-1 [X/d, Y/d, 1/d]."""
+    pts = iproj(disps, intrinsics)
+    d = pts[..., 3:4].clamp(min=1e-8)
+    cam_pts = pts[..., :3] / d
+    return lie.act3(lie.inv(poses)[:, None, None, :], cam_pts)
+
+
+def projmap(poses, disps, intrinsics, ii, jj):
+    """Dense reprojection map: coords (E, ht, wd, 3) with the projected
+    inverse depth, and validity (E, ht, wd, 1)."""
+    return projective_transform(poses, disps, intrinsics, ii, jj,
+                                return_depth=True)

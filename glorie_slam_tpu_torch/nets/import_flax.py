@@ -1,5 +1,7 @@
-"""Weight carrier: JAX-package ``TrackerNet`` params -> this port's
-``state_dict``.
+"""Weight carriers: JAX-package params -> this port's ``state_dict``s.
+
+``flax_params_to_state_dict`` carries ``TrackerNet``'s DroidNet params;
+``decoder_params_to_state_dict`` the mapper's ``PointDecoders`` params.
 
 The JAX package keeps its DroidNet params as a nested dict (flax layout:
 HWIO conv kernels, and three double-width convs that fuse reference
@@ -92,3 +94,27 @@ def flax_params_to_state_dict(variables) -> Dict[str, torch.Tensor]:
             state[f"{prefix}.bias"] = b
     return {k: torch.from_numpy(np.array(v))
             for k, v in state.items()}
+
+
+def decoder_params_to_state_dict(params) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``PointDecoders`` params (nested dict of arrays,
+    with or without the top-level "params" key) -> the port's
+    ``mapping.decoders.PointDecoders`` state_dict. The port names its
+    modules after the flax tree, so a Dense ``kernel`` (in, out) becomes
+    ``weight`` (out, in) and ``bias`` and the Fourier ``B`` keep their
+    names and layouts."""
+    params = params.get("params", params)
+    state = {}
+
+    def walk(node, prefix):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                walk(val, prefix + (key,))
+                continue
+            arr = np.asarray(val, np.float32)
+            if key == "kernel":
+                key, arr = "weight", arr.T
+            state[".".join(prefix + (key,))] = torch.tensor(arr)
+
+    walk(params, ())
+    return state

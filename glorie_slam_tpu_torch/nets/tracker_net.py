@@ -6,13 +6,15 @@ where a caller asks for it (the CPU tests). Inputs are cast to ``dtype`` on
 entry; outputs stay in ``dtype`` and the callers cast, as in the JAX
 package. Random weights come from an explicit ``torch.Generator`` seeded by
 ``seed`` (no droid.pth is shipped); ``state_dict`` loads given weights,
-for example from ``import_flax.flax_params_to_state_dict``.
+for example from ``import_flax.flax_params_to_state_dict``, and
+``from_checkpoint`` loads ``droid.pth``.
 """
 
 import torch
 
 from ..device import resolve_device
 from .droid_net import DroidNet
+from .import_torch import load_droid_checkpoint
 
 
 class TrackerNet:
@@ -30,6 +32,12 @@ class TrackerNet:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device, dtype).eval()
         self.model.requires_grad_(False)
+
+    @classmethod
+    def from_checkpoint(cls, path, dtype=None, device=None):
+        """Load ``droid.pth`` (``import_torch.load_droid_checkpoint``)."""
+        return cls(state_dict=load_droid_checkpoint(path), dtype=dtype,
+                   device=device)
 
     def features(self, images):
         """images (B, 3, H, W) normalized -> fmaps (B, 128, H/8, W/8)."""

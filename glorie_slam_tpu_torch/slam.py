@@ -1,17 +1,23 @@
-"""SLAM entry point for tracking-only runs.
+"""SLAM entry point: tracking and mapping.
 
-Counterpart of ``glorie_slam_tpu/slam.py`` with ``only_tracking``:
-``SLAM(cfg, stream).run()`` tracks every frame of the stream, then
-terminates: the final global BA (``tracking.backend.final_ba``),
-``video.npz``, the keyframe ATE, the trajectory filler and the
-full-trajectory ATE (``traj/``), and the phase times
-(``logs/phase_times.json``).
+Counterpart of ``glorie_slam_tpu/slam.py``: ``SLAM(cfg, stream).run()``
+tracks every frame of the stream and, unless ``only_tracking``, maps each
+``mapping.every_keyframe``-th keyframe, on a worker thread against a
+snapshot of the video (``mapping.async_mapping``, the default) or inside
+the tracker's handshake. It then terminates: the worker is joined, the
+final global BA (``tracking.backend.final_ba``), the mapper's
+``final_refine`` and point-cloud files, ``video.npz``, the keyframe ATE,
+the trajectory filler and the full-trajectory ATE (``traj/``), and the
+phase times (``logs/phase_times.json``). ``tracking.pretrained`` and
+``mapping.pretrained`` load ``droid.pth`` and ``middle_fine.pt`` where the
+files exist; otherwise the weights are random.
 
-Not here: the mapper and its evaluations (later slices), checkpoints and
-resume, wandb, online mono-depth prediction, loading ``droid.pth``, and
+Not here: the render and mesh evaluations and the visualizer (a later
+slice), checkpoints and resume, wandb, online mono-depth prediction, and
 the JAX package's ahead-of-time compile warm-up and shape profile (XLA
-machinery with no counterpart in eager PyTorch). An evaluation that fails
-fails the run; nothing in ``terminate`` is best-effort.
+machinery with no counterpart in eager PyTorch). A mapper that fails, or
+an evaluation that fails, fails the run: the JAX package's fall-back to
+tracking alone and its best-effort evaluations are not copied.
 """
 
 import os
@@ -20,6 +26,8 @@ import numpy as np
 
 from .core.depth_video import DepthVideo
 from .device import resolve_device
+from .mapping.async_worker import AsyncMapper
+from .mapping.mapper import Mapper
 from .nets.tracker_net import TrackerNet
 from .tracking.backend import Backend
 from .tracking.tracker import Tracker
@@ -59,9 +67,6 @@ class SLAM:
         self.cfg = cfg
         self.stream = stream
         self.device = resolve_device(device)
-        if not cfg.get("only_tracking", False):
-            raise NotImplementedError(
-                "the mapper is not ported yet; set only_tracking: True")
         self.output = (f"{cfg['data']['output']}/{cfg['setting']}/"
                        f"{cfg['scene']}")
         os.makedirs(f"{self.output}/logs/", exist_ok=True)
@@ -70,22 +75,35 @@ class SLAM:
         self.printer = Printer(len(stream), cfg.get("silence", False))
         ckpt = cfg["tracking"].get("pretrained")
         if ckpt and os.path.exists(ckpt):
-            raise NotImplementedError(
-                f"loading {ckpt} is not ported yet; unset "
-                "tracking.pretrained to run with random weights")
-        self.tracker_net = TrackerNet(device=self.device)
-        self.printer.print(
-            "WARNING: no droid checkpoint found, using random weights",
-            subsystem="error")
+            self.tracker_net = TrackerNet.from_checkpoint(ckpt,
+                                                          device=self.device)
+            self.printer.print(f"Loaded droid checkpoint from {ckpt}",
+                               subsystem="info")
+        else:
+            self.tracker_net = TrackerNet(device=self.device)
+            self.printer.print(
+                "WARNING: no droid checkpoint found, using random weights",
+                subsystem="error")
 
         self.video = DepthVideo(cfg, device=self.device)
         self.backend = Backend(self.tracker_net, self.video, cfg)
         self.traj_filler = PoseTrajectoryFiller(self.tracker_net, self.video,
                                                 self.printer)
         self.timer = PhaseTimer()
+        mono_predictor = self._make_mono_predictor(cfg)
+        self.mapper = self.async_mapper = on_kf = None
+        if not cfg.get("only_tracking", False):
+            self.mapper = Mapper(self, cfg)
+            if cfg["mapping"].get("async_mapping", True):
+                self.async_mapper = AsyncMapper(self.mapper, self.video,
+                                                printer=self.printer)
+                on_kf = self.async_mapper.on_keyframe
+            else:
+                on_kf = self.mapper.on_keyframe
         self.tracker = Tracker(
             self.tracker_net, self.video, cfg, printer=self.printer,
-            mono_predictor=self._make_mono_predictor(cfg), timer=self.timer)
+            mono_predictor=mono_predictor, on_keyframe=on_kf,
+            timer=self.timer)
 
     def _make_mono_predictor(self, cfg):
         """Mono-depth priors from the cache written beside the output
@@ -120,14 +138,22 @@ class SLAM:
         self.printer.print("Final Global BA Done!", subsystem="tracker")
 
     def terminate(self):
-        """Final BA -> save video -> keyframe ATE -> trajectory filler and
-        full ATE -> phase times. Nothing overlaps these phases, so each
-        ends with a device synchronize and its time includes its work."""
+        """Join the mapper -> final BA -> final refine -> save video ->
+        keyframe ATE -> trajectory filler and full ATE -> phase times.
+        Nothing overlaps these phases, so each ends with a device
+        synchronize and its time includes its work."""
         timer = self.timer
         timer.sync = True
+        if self.async_mapper is not None:
+            # the tracker's end handshake joined it already; a run cut short
+            # still gets a quiescent mapper here
+            self.async_mapper.join()
         if self.cfg["tracking"]["backend"].get("final_ba", True):
             with timer.phase("final_ba"):
                 self.final_ba()
+        if self.mapper is not None:
+            with timer.phase("final_refine"):
+                self.mapper.final_refine(save_final_pcl=True)
         with timer.phase("save_video"):
             self.video.save_video(f"{self.output}/video.npz")
 

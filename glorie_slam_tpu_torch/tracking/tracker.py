@@ -1,8 +1,12 @@
-"""Tracker loop: motion filter -> frontend -> periodic online global BA.
+"""Tracker loop: motion filter -> frontend -> periodic online global BA
+-> mapper handshake.
 
-Counterpart of ``glorie_slam_tpu/tracking/tracker.py`` for the tracking
-slice (``only_tracking``; the mapper handshake and checkpoint hooks belong
-to later slices).
+Counterpart of ``glorie_slam_tpu/tracking/tracker.py``: every
+``mapping.every_keyframe``-th keyframe calls ``on_keyframe`` inside a
+``mapper`` phase (the synchronous ``Mapper.on_keyframe`` or
+``AsyncMapper.on_keyframe``), and the end of the stream sends a final
+``{"end": True}``, in the same phase (the asynchronous mapper drains its
+queue there). Checkpoint hooks are not ported.
 """
 
 from ..utils.phase_timer import PhaseTimer
@@ -13,10 +17,13 @@ from .motion_filter import MotionFilter
 
 class Tracker:
     def __init__(self, tracker_net, video, cfg, printer=None,
-                 mono_predictor=None, timer=None):
+                 mono_predictor=None, on_keyframe=None, timer=None):
         self.cfg = cfg
         self.video = video
         self.printer = printer
+        self.on_keyframe = on_keyframe
+        if on_keyframe is not None:
+            self.every_kf = cfg["mapping"]["every_keyframe"]
         self.timer = timer if timer is not None else PhaseTimer()
         tcfg = cfg["tracking"]
         self.motion_filter = MotionFilter(
@@ -28,10 +35,12 @@ class Tracker:
         self.ba_freq = tcfg["backend"]["ba_freq"]
         self.prev_kf_idx = 0
         self.prev_ba_idx = 0
+        self.number_of_kf = 0
 
     def step(self, i, stream):
         """Track stream frame ``i``: motion filter, prefetch of frame
-        i + 1, frontend, and online BA every ``ba_freq`` keyframes."""
+        i + 1, frontend, online BA every ``ba_freq`` keyframes, and the
+        mapper handshake."""
         timer = self.timer
         timestamp, image = stream[i][0], stream[i][1]
         with timer.phase("motion_filter"):
@@ -45,6 +54,7 @@ class Tracker:
             self.frontend()
         curr_kf_idx = self.video.counter - 1
         if curr_kf_idx != self.prev_kf_idx and self.frontend.is_initialized:
+            self.number_of_kf += 1
             timer.keyframe()
             if (self.enable_online_ba
                     and curr_kf_idx >= self.prev_ba_idx + self.ba_freq):
@@ -55,6 +65,12 @@ class Tracker:
                 with timer.phase("online_ba"):
                     self.online_ba.dense_ba(2)
                 self.prev_ba_idx = curr_kf_idx
+            if (self.on_keyframe is not None
+                    and self.number_of_kf % self.every_kf == 0):
+                with timer.phase("mapper"):
+                    self.on_keyframe({"is_keyframe": True,
+                                      "video_idx": curr_kf_idx,
+                                      "timestamp": timestamp, "end": False})
         self.prev_kf_idx = curr_kf_idx
         if self.printer is not None:
             self.printer.update_pbar()
@@ -64,3 +80,7 @@ class Tracker:
         (timestamp, image_hw3_01, ...), with ``get_intrinsic()``)."""
         for i in range(len(stream)):
             self.step(i, stream)
+        if self.on_keyframe is not None:
+            with self.timer.phase("mapper"):
+                self.on_keyframe({"is_keyframe": True, "video_idx": None,
+                                  "timestamp": None, "end": True})

@@ -264,3 +264,123 @@ def test_wrappers_raise_on_bad_inputs(dev):
                                  + (small,) * 3, idx, idx, c_tall)
     with pytest.raises(ValueError):
         cuda_corr.lookup_level(tall, tall, idx, idx, c_tall, 16384, 1)
+
+
+# ---------------------------------------------------------------------------
+# the mapper on the card (plain PyTorch: no kernel of its own yet)
+# ---------------------------------------------------------------------------
+
+def test_knn_search_on_the_card_matches_cpu(dev):
+    """float32 matmuls (TF32 off, as ``device.resolve_device`` sets it);
+    distances to 1e-5 relative past 4e-6 absolute (cuBLAS may sum the
+    3-term cross product in another order: a few ulps of |q|^2 ~ 10);
+    indices exactly where the distances are not within that of a distinct
+    neighbour's (the (k+1)-th included), exact ties between copies of a
+    point included: both devices list copies lowest index first; and the
+    search refuses to run with TF32 on."""
+    from glorie_slam_tpu_torch.device import resolve_device
+    from glorie_slam_tpu_torch.ops import knn
+
+    resolve_device("cuda")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    g = torch.Generator().manual_seed(0)
+    cap, count = 3 * knn.TILE, 20000
+    pts = torch.full((cap, 3), 0.001)
+    pts[:count] = 1.0 + 2.0 * torch.rand((count, 3), generator=g)
+    # copies of the first 2000 points, in the last tile that holds points
+    pts[count - 2000:count] = pts[:2000]
+    q = 1.0 + 2.0 * torch.rand((5000, 3), generator=g)
+    # one neighbour more than compared, so that a tie at the k-th place
+    # (the first left out) is seen
+    D, I = knn.knn_search(q.to(dev), pts.to(dev), count, k=knn.NN_NUM + 1)
+    Dc, Ic = knn.knn_search(q, pts, count, k=knn.NN_NUM + 1)
+    D, I = D.cpu(), I.cpu()
+    tol = 4e-6 + 1e-5 * Dc.abs()
+    assert bool(((D - Dc).abs() <= tol).all())
+    gap = torch.diff(Dc, dim=1).abs()
+    near = (gap <= 2 * tol[:, 1:]) & (gap > 0)
+    clear = torch.ones_like(Dc, dtype=torch.bool)
+    clear[:, 1:] &= ~near
+    clear[:, :-1] &= ~near
+    clear = clear[:, :knn.NN_NUM]
+    assert clear.float().mean() > 0.9
+    tied = torch.zeros_like(clear)
+    tied[:, 1:] = gap[:, :knn.NN_NUM - 1] == 0
+    assert int((tied & clear).sum()) > 100
+    assert bool((I[:, :knn.NN_NUM][clear] == Ic[:, :knn.NN_NUM][clear]).all())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="TF32"):
+            knn.knn_search(q.to(dev), pts.to(dev), count)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_mapping_step_on_the_card_matches_cpu(dev):
+    """One train step (render -> losses -> gradients -> Adam) from one
+    state on both devices, in both stages; the tolerances are
+    ``chip_smoke.mapping_step_check``'s."""
+    import chip_smoke
+
+    res = chip_smoke.mapping_step_check()
+    for stage in ("geometry", "color"):
+        assert res[stage]["max_loss_rel"] <= 1e-5
+        assert res[stage]["entries_off"] == 0
+        assert res[stage]["knn_probes"]["neighbour_lists"] == 0
+        assert res[stage]["losses_cpu"]["warp_loss"] > 0
+
+
+def test_async_snapshot_on_the_card(dev):
+    """The tracker on the card with the asynchronous mapper: the worker,
+    on its own CUDA stream, reads what the tracker's thread read at each
+    handshake, though tracking has moved on."""
+    import time
+
+    from glorie_slam_tpu_torch.core.depth_video import DepthVideo
+    from glorie_slam_tpu_torch.mapping.async_worker import AsyncMapper
+    from glorie_slam_tpu_torch.nets.tracker_net import TrackerNet
+    from glorie_slam_tpu_torch.tracking.tracker import Tracker
+    from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
+                                                       base_cfg)
+
+    def capture(view, ix):
+        depth, mask, c2w = view.get_depth_and_pose(ix)
+        return (view.counter, view.poses[:view.counter].cpu().numpy(),
+                depth, mask, c2w)
+
+    class Recorder:
+        def __init__(self, video):
+            self.live = self.video = video
+            self.records, self.streams = [], []
+
+        def on_keyframe(self, info):
+            time.sleep(0.05)
+            self.streams.append(torch.cuda.current_stream())
+            self.records.append(capture(self.video, info["video_idx"])
+                                + (self.live.counter,))
+
+    stream = SyntheticStream(n_frames=14, H=64, W=96, seed=3)
+    cfg = base_cfg(H=64, W=96, buffer=32)
+    cfg["tracking"]["warmup"] = 6
+    cfg["mapping"] = {"every_keyframe": 1}
+    video = DepthVideo(cfg, device=dev)
+    rec = Recorder(video)
+    am = AsyncMapper(rec, video)
+    expected = []
+
+    def on_kf(info):
+        if not info.get("end"):
+            expected.append(capture(video, info["video_idx"]))
+        am.on_keyframe(info)
+
+    Tracker(TrackerNet(seed=0, device=dev), video, cfg,
+            mono_predictor=lambda ts, img: stream.depths[int(ts)],
+            on_keyframe=on_kf).run(stream)
+    am.join()
+    assert len(rec.records) == len(expected) >= 4
+    assert all(s == am.stream for s in rec.streams)
+    for got, want in zip(rec.records, expected):
+        assert got[0] == want[0]
+        for a, b in zip(got[1:5], want[1:]):
+            assert (a == b).all()
+    assert any(r[5] > r[0] for r in rec.records)

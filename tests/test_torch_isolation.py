@@ -62,3 +62,13 @@ def test_port_sources_name_no_jax_import():
     for path in files:
         with open(path) as f:
             assert not pat.search(f.read()), path
+
+
+def test_walk_covers_the_mapping_slice():
+    """The import check above walks the mapper's modules too."""
+    names = set(_modules())
+    for mod in ("mapping.async_worker", "mapping.decoders",
+                "mapping.import_pointslam", "mapping.mapper",
+                "mapping.point_cloud", "mapping.renderer",
+                "mapping.sampling", "nets.import_torch", "ops.knn"):
+        assert f"glorie_slam_tpu_torch.{mod}" in names, mod

@@ -44,7 +44,8 @@ from glorie_slam_tpu_torch.slam import SLAM
 from glorie_slam_tpu_torch.tracking.trajectory_filler import \
     PoseTrajectoryFiller
 from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
-                                                   base_cfg, bench_cfg)
+                                                   base_cfg, bench_cfg,
+                                                   mapping_cfg)
 from synthetic import SyntheticStream as JStream, base_cfg as jbase_cfg
 
 H, W = 64, 96
@@ -208,11 +209,17 @@ def test_slam_run_tracking_only(tmp_path):
 
 
 def test_slam_refuses_what_is_not_ported(tmp_path):
+    """Online mono-depth prediction is not ported: it raises. The mapper,
+    refused before it was ported, is now built (``test_torch_async_mapper``
+    and ``test_torch_mapper`` run it)."""
     stream = SyntheticStream(n_frames=2, H=H, W=W, seed=3)
     cfg = base_cfg(H=H, W=W, buffer=8, out=str(tmp_path))
+    cfg.update(mapping_cfg())
+    cfg["pointcloud"]["capacity"] = 8192
     cfg["only_tracking"] = False
-    with pytest.raises(NotImplementedError, match="mapper"):
-        SLAM(cfg, stream, device="cpu")
+    slam = SLAM(cfg, stream, device="cpu")
+    assert slam.mapper is not None and slam.async_mapper is not None
+    slam.async_mapper.join()
     cfg["only_tracking"] = True
     cfg["mono_prior"] = {"predict_online": True}
     with pytest.raises(NotImplementedError, match="mono-depth"):
