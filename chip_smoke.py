@@ -47,10 +47,24 @@ Phases, each printing its wall seconds:
    held against its plain version on them and timed beside the library
    form and its bound (A's ``pipeline`` entry in the kernels line). The
    peak memory includes that copy (``probe_capture_bytes``);
-6. mapping step: one mapping train step (render, losses, gradients, Adam)
+6. mono prior: the omnidata DPT at the checkpoint's widths (768 dims, 12
+   blocks, 12 heads, 256 features) at 512x512 with random weights, on the
+   card and on the CPU (``mono_prior_check``): its taps (backbone and
+   transformer hooks, ``refinenet1``, the depth before the last ReLU) and
+   ``MonoDepthEstimator.predict`` of a 320x640 frame within ``DPT_TOL``,
+   the share of depths inside (0, 1), ms per frame (median of 10 calls,
+   CUDA events), peak memory, and the bound from the forward's operations
+   (``dpt_work``) at the float32 rate (TF32 is off);
+7. online prior: ``SLAM(cfg, stream).run()`` tracking-only with
+   ``mono_prior.predict_online`` (``online_prior_run``, 20 frames): the
+   DPT's calls against the cadence (every ``mapping.every_frame``-th frame)
+   and the admissions, its ``.npy`` files, its summed time, and a second
+   ``SLAM`` with ``predict_online: False`` reading the same priors from the
+   cache;
+8. mapping step: one mapping train step (render, losses, gradients, Adam)
    from one 120x160 state at the Replica widths on the card and on the CPU
    (``mapping_step_check``), in both stages, with the kNN's disagreement;
-7. mapping: ``SLAM(cfg, stream).run()`` with the mapper on (asynchronous,
+9. mapping: ``SLAM(cfg, stream).run()`` with the mapper on (asynchronous,
    on its worker's CUDA stream) at 320x640 and the Replica widths, with the
    cuts ``MAPPING_FRAMES`` / ``MAPPING_CUTS`` printed (the tracking config
    is bench.py's, multiview filter 0.01 included): ``MapProbe`` gives the
@@ -59,6 +73,15 @@ Phases, each printing its wall seconds:
    ``final_refine`` seconds, peak memory, the first and last losses; the
    geo loss must fall over the first mapped keyframe, and ``final_refine``
    must run its optimisation. Kernels A and B launch again in its tracking.
+   ``terminate`` then runs the evaluations, each in its phase: the
+   keyframe and full-trajectory render metrics, the TSDF mesh and, against
+   a ground-truth PLY of the synthetic plane (``write_plane_mesh``), the
+   reconstruction metrics; the phase prints the three metrics files, the
+   LPIPS variant, each evaluation's seconds and the mesh's counts, and
+   fails if a file is missing. The cached true-depth priors stay: a
+   random-weight DPT's priors would starve the mapper;
+10. eval modules: TSDF integration of one frame and LPIPS, card against
+    CPU (``eval_modules_check``).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -86,6 +109,8 @@ PIPELINE_FRAMES = 40
 MAPPING_FRAMES = 16
 MAPPING_CUTS = {"iters_first": 40, "geo_iter_first": 15, "iters": 10,
                 "pretrained": None}
+# the online-prior run: 20 frames, the DPT at every 5th and every admitted
+ONLINE_FRAMES = 20
 
 
 def phase(name, t0):
@@ -1228,9 +1253,10 @@ class MapProbe:
     """Wraps ``mapper._map_train_step`` and ``knn.knn_search`` from outside
     the package for one run: CUDA events around every call (recorded on the
     calling thread's stream, so the asynchronous worker's stream when it
-    maps), the kNN calls split into those inside a train step and the rest;
-    and each mapped keyframe's wall time (its ``on_keyframe`` call, ended
-    with a synchronize of its stream)."""
+    maps), the kNN calls split into those inside a train step, those inside
+    the end-of-run evaluations (``local.in_eval``, set by the caller) and
+    the rest; and each mapped keyframe's wall time (its ``on_keyframe``
+    call, ended with a synchronize of its stream)."""
 
     def __init__(self, mapper):
         import threading
@@ -1241,6 +1267,7 @@ class MapProbe:
         self.mapper, self.inner_kf = mapper, mapper.on_keyframe
         self.local = threading.local()
         self.steps, self.knn_in, self.knn_out, self.kf_s = [], [], [], []
+        self.knn_eval = []
 
     def _timed(self, fn, sink, *a, **kw):
         import torch
@@ -1260,6 +1287,7 @@ class MapProbe:
 
     def knn(self, *a, **kw):
         sink = (self.knn_in if getattr(self.local, "in_step", False)
+                else self.knn_eval if getattr(self.local, "in_eval", False)
                 else self.knn_out)
         return self._timed(self.inner[1], sink, *a, **kw)
 
@@ -1286,6 +1314,187 @@ class MapProbe:
         return [s.elapsed_time(e) for s, e in events]
 
 
+EVAL_FILES = ("logs/metrics_render_kf.txt", "logs/metrics_render_full.txt",
+              "logs/metrics_recon.txt", "mesh/rendered_mesh_kf.ply")
+EVAL_PHASES = ("eval_kf_imgs", "generate_mesh_kf", "eval_imgs",
+               "eval_recon")
+
+
+def write_plane_mesh(out_dir, stream):
+    """The synthetic scene's ground truth as an ASCII PLY: the part of the
+    plane z = ``PLANE_Z`` that ``stream``'s frames see (the rectangle
+    spanned by their corner pixels), as one quad of two triangles."""
+    import numpy as np
+    from glorie_slam_tpu_torch.mapping import mesher
+    from glorie_slam_tpu_torch.utils.synthetic import PLANE_Z
+
+    fx, fy, cx, cy = (float(v) for v in stream.intrinsics)
+    H, W = stream.H, stream.W
+    corners = []
+    for depth, c2w in zip(stream.depths, stream.poses):
+        for v, u in ((0, 0), (0, W - 1), (H - 1, 0), (H - 1, W - 1)):
+            z = float(depth[v, u])
+            p = np.array([(u - cx) / fx * z, (v - cy) / fy * z, z])
+            corners.append(c2w[:3, :3] @ p + c2w[:3, 3])
+    lo, hi = np.min(corners, 0), np.max(corners, 0)
+    path = os.path.join(out_dir, "plane_gt.ply")
+    mesher.write_ply_mesh(path, np.array(
+        [[lo[0], lo[1], PLANE_Z], [hi[0], lo[1], PLANE_Z],
+         [hi[0], hi[1], PLANE_Z], [lo[0], hi[1], PLANE_Z]]),
+        np.array([[0, 1, 2], [0, 2, 3]]))
+    return path
+
+
+def read_evaluation(out):
+    """A run's evaluation files -> (metrics by file, the mesh's element
+    counts). Raises when one is missing; the reconstruction metrics are
+    required when the mesh has faces (``SLAM.evaluate`` scores no empty
+    mesh)."""
+    path = os.path.join(out, EVAL_FILES[3])
+    if not os.path.exists(path):
+        raise AssertionError(f"evaluation file missing: {EVAL_FILES[3]}")
+    mesh = {}
+    with open(path) as f:
+        for words in map(str.split, f):
+            if words[0] == "end_header":
+                break
+            if words[0] == "element":
+                mesh[words[1]] = int(words[2])
+    names = EVAL_FILES[:3] if mesh.get("face") else EVAL_FILES[:2]
+    missing = [n for n in names if not os.path.exists(os.path.join(out, n))]
+    if missing:
+        raise AssertionError(f"evaluation files missing: {missing}, mesh "
+                             f"{mesh}")
+    metrics = {}
+    for name in names:
+        with open(os.path.join(out, name)) as f:
+            metrics[os.path.basename(name)] = dict(
+                line.rstrip("\n").split(": ", 1) for line in f)
+    return metrics, mesh
+
+
+def oracle_evaluation(n_frames=7, keyframes=(0, 3, 6), H=320, W=640,
+                      device="cuda"):
+    """``SLAM.evaluate`` (the four evaluations, each in its phase) on a
+    mapper over the true poses and depths of a 320x640 circuit stream
+    (``oracle_video``) at the Replica widths, with ``keyframes`` mapped
+    through ``Mapper.on_keyframe`` (``MAPPING_CUTS``), the true trajectory
+    as ``video.npz`` and ``traj/full_traj_w2c.npy``, and the plane's
+    ground-truth mesh: the renders, the mesh and the reconstruction
+    metrics on a state where they mean something (random-weight tracking
+    gives the mapping phase depths far off the plane, see ``fused``)."""
+    import types
+
+    import numpy as np
+    import torch
+    from glorie_slam_tpu_torch import build
+    from glorie_slam_tpu_torch import slam as slam_mod
+    from glorie_slam_tpu_torch.mapping.mapper import Mapper
+    from glorie_slam_tpu_torch.utils.phase_timer import PhaseTimer
+    from glorie_slam_tpu_torch.utils.printer import Printer
+    from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
+                                                       bench_cfg, mapping_cfg)
+
+    stream = SyntheticStream(n_frames=n_frames, H=H, W=W, seed=3,
+                             motion_scale=0.02, trajectory="circuit")
+    os.makedirs(build.BUILD_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+        cfg = bench_cfg(H=H, W=W, buffer=n_frames + 4, out=tmp)
+        cfg.update(mapping_cfg())
+        cfg["only_tracking"] = False
+        cfg["mapping"].update(MAPPING_CUTS)
+        cfg["meshing"] = {"gt_mesh_path": write_plane_mesh(tmp, stream)}
+        priors = os.path.join(tmp, f"{cfg['scene']}_priors", "depths")
+        os.makedirs(priors)
+        for i, depth in enumerate(stream.depths):
+            np.save(os.path.join(priors, f"{i:05d}.npy"), depth)
+        out = f"{tmp}/{cfg['setting']}/{cfg['scene']}"
+        for d in ("logs", "traj"):
+            os.makedirs(os.path.join(out, d))
+        np.savez(os.path.join(out, "video.npz"), poses=np.stack(stream.poses),
+                 timestamps=np.arange(n_frames, dtype=np.float32))
+        np.save(os.path.join(out, "traj", "full_traj_w2c.npy"),
+                stream.poses_w2c)
+        H_, W_, fx, fy, cx, cy = slam_mod.update_cam(cfg)
+        run = types.SimpleNamespace(
+            video=oracle_video(stream, cfg, n_frames, device),
+            printer=Printer(0, True), output=out, H=H_, W=W_, fx=fx, fy=fy,
+            cx=cx, cy=cy, stream=stream, cfg=cfg, timer=PhaseTimer(sync=True),
+            device=torch.device(device))
+        run.mapper = Mapper(run, cfg)
+        t0 = time.perf_counter()
+        for k in keyframes:
+            run.mapper.on_keyframe({"is_keyframe": True, "video_idx": k,
+                                    "timestamp": k, "end": False})
+        torch.cuda.synchronize()
+        map_s = time.perf_counter() - t0
+        slam_mod.SLAM.evaluate(run)
+        metrics, mesh = read_evaluation(out)
+        phases = run.timer.summary()
+    if len(run.mapper.keyframe_dict) != len(keyframes) or not mesh.get(
+            "face") or "metrics_recon.txt" not in metrics:
+        raise AssertionError(f"oracle evaluation: {len(run.mapper.keyframe_dict)}"
+                             f" keyframes mapped, mesh {mesh}, {list(metrics)}")
+    recon = {k: float(v) for k, v in metrics["metrics_recon.txt"].items()}
+    if not all(np.isfinite(v) for k, v in recon.items()
+               if not k.startswith("normal")):
+        raise AssertionError(f"reconstruction metrics not finite: {recon}")
+    return dict(frames=n_frames, keyframes=list(keyframes), map_s=map_s,
+                metrics=metrics, mesh=mesh,
+                eval_s={k: phases[k]["total_s"] for k in EVAL_PHASES})
+
+
+def eval_modules_check(H=320, W=640, device="cuda"):
+    """TSDF integration of one synthetic frame (its true depth and colour,
+    the volume ``generate_mesh_kf`` would bound it with, voxel 0.01) and
+    LPIPS of the frame against a noisy copy, on the card and on the CPU.
+    The TSDF's voxel centres and transform are float64 on both, so the
+    volumes agree to float32 rounding (1e-5) except where a voxel's pixel
+    rounds the other way (at most 1e-4 of the voxels); LPIPS to 1e-4
+    relative (float32 convolutions summed in another order)."""
+    import numpy as np
+    import torch
+    from glorie_slam_tpu_torch.mapping import mesher
+    from glorie_slam_tpu_torch.utils import image_metrics
+    from glorie_slam_tpu_torch.utils.synthetic import SyntheticStream
+
+    stream = SyntheticStream(n_frames=1, H=H, W=W, seed=3)
+    depth, color, c2w = stream.depths[0], stream.frames[0], stream.poses[0]
+    fx, fy, cx, cy = (float(v) for v in stream.intrinsics)
+    v, u = np.nonzero(depth > 0)
+    z = depth[v, u]
+    pts = (np.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], -1)
+           @ c2w[:3, :3].T + c2w[:3, 3])
+    vols = {}
+    for dev in ("cpu", device):
+        vol = mesher.TSDFVolume(pts.min(0) - 0.1, pts.max(0) + 0.1,
+                                voxel_size=0.01, device=dev)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vol.integrate(depth, color, (fx, fy, cx, cy), c2w)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        vols[dev] = (vol, time.perf_counter() - t0)
+    (cvol, cpu_s), (gvol, card_s) = vols["cpu"], vols[device]
+    off = {}
+    for name in ("tsdf", "weight", "color"):
+        d = np.abs(getattr(gvol, name) - getattr(cvol, name))
+        off[name] = float((d > 1e-5).mean())
+    lp_cpu, lp = image_metrics.LPIPS(), image_metrics.LPIPS().to(device)
+    noisy = np.clip(color + np.random.default_rng(0).normal(
+        0, 0.05, color.shape), 0, 1).astype(np.float32)
+    l_cpu, l_card = float(lp_cpu(color, noisy)), float(lp(color, noisy))
+    lp_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    if max(off.values()) > 1e-4 or not lp_rel <= 1e-4:
+        raise AssertionError(f"TSDF voxels off {off}, LPIPS rel {lp_rel}")
+    return dict(voxels=int(np.prod(gvol.dims)), dims=gvol.dims.tolist(),
+                observed=float((cvol.weight > 0).mean()),
+                voxels_off=off, integrate_s_card=card_s,
+                integrate_s_cpu=cpu_s, lpips_card=l_card, lpips_cpu=l_cpu,
+                lpips_rel=lp_rel, lpips_variant=lp.variant)
+
+
 def mapping_phase(n_frames, H=320, W=640, device="cuda"):
     """``SLAM.run`` with mapping at 320x640 (see ``MAPPING_CUTS``)."""
     import numpy as np
@@ -1310,6 +1519,8 @@ def mapping_phase(n_frames, H=320, W=640, device="cuda"):
         for i, depth in enumerate(stream.depths):
             np.save(os.path.join(priors, f"{i:05d}.npy"), depth)
 
+        cfg["meshing"] = {"gt_mesh_path": write_plane_mesh(tmp, stream)}
+
         slam = SLAM(cfg, stream, device=device)
         if slam.async_mapper is None or (slam.async_mapper.stream is None
                                          and device == "cuda"):
@@ -1319,21 +1530,49 @@ def mapping_phase(n_frames, H=320, W=640, device="cuda"):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with MapProbe(slam.mapper) as probe:
+            evaluate = slam.evaluate
+
+            def probed_evaluate():
+                probe.local.in_eval = True
+                try:
+                    evaluate()
+                finally:
+                    probe.local.in_eval = False
+
+            slam.evaluate = probed_evaluate
             slam.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         launches = {k.name: k.launches for k in cuda_corr.KERNELS}
         out = slam.output
+        with open(os.path.join(out, "traj", "metrics_kf_traj.txt")) as f:
+            kf_traj = dict(line.rstrip("\n").split(": ", 1) for line in f)
+        dump_dir = os.path.join(out, "rendered_every_keyframe")
+        dumps = [np.load(os.path.join(dump_dir, f))
+                 for f in sorted(os.listdir(dump_dir)) if "depth" in f]
+        scale = float(kf_traj["scale"])
+        seen = np.concatenate([d[d > 0] for d in dumps]) * scale
+        # the TSDF bounds take every depth; it integrates those under 8 m
+        fused = dict(
+            sim3_scale=scale, depth_dumps=len(dumps),
+            scaled_depth_median=float(np.median(seen)),
+            scaled_depth_max=float(seen.max()),
+            share_past_8m=float((seen >= 8.0).mean()))
+        try:
+            metrics, mesh_counts = read_evaluation(out)
+        except AssertionError as e:
+            raise AssertionError(f"{e}; {fused}; keyframe ATE {kf_traj}")
         files = {f: os.path.getsize(os.path.join(out, f)) for f in (
             "final_point_cloud.npy", "npc_cloud.npy", "final_point_cloud.ply",
-            "video.npz")}
+            "video.npz", *EVAL_FILES) if os.path.exists(os.path.join(out, f))}
         cloud = np.load(os.path.join(out, "final_point_cloud.npy"))
         with open(os.path.join(out, "logs", "phase_times.json")) as f:
             phases = json.load(f)["phases"]
     mapper, stats = slam.mapper, slam.async_mapper.stats
     steps = MapProbe.ms(probe.steps)
     knn_in, knn_out = MapProbe.ms(probe.knn_in), MapProbe.ms(probe.knn_out)
+    knn_eval = MapProbe.ms(probe.knn_eval)
     hist = mapper.loss_history
     first_kf = [h for h in hist if h["idx"] == hist[0]["idx"]
                 and not h["refine"]]
@@ -1375,7 +1614,275 @@ def mapping_phase(n_frames, H=320, W=640, device="cuda"):
         peak_memory_bytes=peak, launches=launches,
         loss_first=hist[0], loss_last=hist[-1],
         first_keyframe_geo=[first_kf[0]["geo"], first_kf[-1]["geo"]],
-        files=files)
+        files=files, metrics=metrics, mesh=mesh_counts, fused=fused,
+        lpips_variant=metrics["metrics_render_kf.txt"]["lpips_variant"],
+        eval_s={k: phases[k]["total_s"] for k in EVAL_PHASES if k in phases},
+        knn_in_evaluations_ms=sum(knn_eval),
+        knn_calls_in_evaluations=len(knn_eval))
+
+
+# ---------------------------------------------------------------------------
+# the online mono prior: the omnidata DPT at full width, card vs CPU
+# ---------------------------------------------------------------------------
+
+DPT_TAPS = ("hook0", "hook1", "t_hook0", "t_hook1", "refinenet1", "pre_relu")
+DPT_TOL = 1e-3          # rel-L2, card vs CPU, float32 (TF32 off)
+
+
+def rel_l2(a, b):
+    import torch
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp(
+        min=1e-30))
+
+
+def dpt_work(model, x):
+    """One forward of ``model`` on ``x`` under forward hooks -> (taps,
+    operations by part, bytes). Operations: 2 per multiply-add of every
+    convolution, linear layer and attention product (norms, activations
+    and resampling add well under 1%); parts: the ResNet backbone, the ViT
+    (patch embedding and blocks), the reassembly (readouts, projections and
+    the scratch ``layer*_rn`` convs) and the fusion blocks with the head.
+    Bytes: every parameter, the input and the output, each once."""
+    import torch
+    import torch.nn as nn
+    from glorie_slam_tpu_torch.mapping import dpt
+
+    ops = {"backbone": 0, "vit": 0, "reassemble": 0, "fusion_head": 0}
+
+    def part(name):
+        if name.startswith("pretrained.model.patch_embed.backbone"):
+            return "backbone"
+        if name.startswith("pretrained.model"):
+            return "vit"
+        if name.startswith("pretrained.act") or "_rn" in name:
+            return "reassemble"
+        return "fusion_head"
+
+    def hook(name):
+        def count(m, inp, out):
+            if isinstance(m, dpt.Attention):
+                B, N, D = inp[0].shape
+                ops[part(name)] += 4 * B * N * N * D
+            elif isinstance(m, nn.Conv2d):
+                kh, kw = m.kernel_size
+                ops[part(name)] += (2 * out.numel() * kh * kw
+                                    * m.in_channels // m.groups)
+            else:
+                ops[part(name)] += 2 * out.numel() * m.in_features
+        return count
+
+    handles = [m.register_forward_hook(hook(name))
+               for name, m in model.named_modules()
+               if isinstance(m, (nn.Conv2d, nn.Linear, dpt.Attention))]
+    try:
+        with torch.no_grad():
+            taps = model.taps(x)
+    finally:
+        for h in handles:
+            h.remove()
+    nbytes = (sum(p.numel() * p.element_size() for p in model.parameters())
+              + x.numel() * 4 + taps["depth"].numel() * 4)
+    return taps, ops, nbytes
+
+
+def event_ms(fn, iters, warmup=2):
+    """Each of ``iters`` calls of ``fn`` bracketed by CUDA events ->
+    (times in ms, the last output)."""
+    import torch
+    for _ in range(warmup):
+        out = fn()
+    times = []
+    for _ in range(iters):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return times, out
+
+
+def mono_prior_check(size=512, H=320, W=640, iters=10, device="cuda",
+                     dpt_kw=None):
+    """The DPT as the omnidata checkpoint defines it (768 dims, 12 blocks,
+    12 heads, 256 features) at ``size`` x ``size``, random weights (seed
+    0), on the card and on the CPU: the taps (``DPT_TAPS``) of one frame
+    against each other (rel-L2 <= ``DPT_TOL``), ``MonoDepthEstimator.
+    predict`` of a 320x640 frame likewise, the share of depths inside
+    (0, 1), the per-frame time (median of ``iters`` calls, CUDA events),
+    the peak memory, and the bound from the forward's operations and
+    bytes. ``dpt_kw`` shrinks the model for a CPU rehearsal."""
+    import numpy as np
+    import torch
+    from glorie_slam_tpu_torch import build
+    from glorie_slam_tpu_torch.mapping import mono_prior
+    from glorie_slam_tpu_torch.utils.synthetic import SyntheticStream
+
+    if dpt_kw:
+        import functools
+        inner = mono_prior.DPTDepthModel
+        mono_prior.DPTDepthModel = functools.partial(inner, **dpt_kw)
+    os.makedirs(build.BUILD_ROOT, exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+            cfg = {"mono_prior": {"depth": "omnidata"}, "scene": "synth",
+                   "data": {"output": tmp}}
+            t0 = time.perf_counter()
+            est_cpu = mono_prior.MonoDepthEstimator(cfg, size, device="cpu")
+            est = mono_prior.MonoDepthEstimator(cfg, size, device=device)
+            build_s = time.perf_counter() - t0
+    finally:
+        if dpt_kw:
+            mono_prior.DPTDepthModel = inner
+    frame = SyntheticStream(n_frames=1, H=H, W=W, seed=3).frames[0]
+    x = mono_prior.resize(torch.as_tensor(frame).permute(2, 0, 1),
+                          (size, size), "bilinear")[None]
+    x = (x - 0.5) / 0.5
+    t0 = time.perf_counter()
+    ref, ops, nbytes = dpt_work(est_cpu.model, x)
+    cpu_s = time.perf_counter() - t0
+    with torch.no_grad():
+        got = est.model.taps(x.to(device))
+    errs = {k: rel_l2(got[k], ref[k]) for k in DPT_TAPS}
+    d = ref["pre_relu"].clamp(0.0, 1.0)
+    inside = float(((d > 0) & (d < 1)).float().mean())
+    pred_ref = est_cpu.predict(frame)
+    img = torch.as_tensor(frame, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    times, pred = event_ms(lambda: est.predict(img), iters)
+    peak = torch.cuda.max_memory_allocated()
+    xd = x.to(device)
+    with torch.no_grad():
+        fwd_times, _ = event_ms(lambda: est.model(xd), iters)
+    pred_err = rel_l2(pred, pred_ref)
+    pred_inside = float(((pred_ref > 0) & (pred_ref < 1)).float().mean())
+    flops = sum(ops.values())
+    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOPS)
+    for k, e in [*errs.items(), ("predict", pred_err)]:
+        if not e <= DPT_TOL:
+            raise AssertionError(f"DPT {k}: card vs CPU rel-L2 {e:.3g} > "
+                                 f"{DPT_TOL}")
+    if pred.shape != (H, W) or not bool(torch.isfinite(pred).all()):
+        raise AssertionError("DPT prior has the wrong shape or is not "
+                             "finite")
+    return dict(
+        size=size, frame=[H, W], params=sum(
+            p.numel() for p in est.model.parameters()),
+        rel_l2_card_vs_cpu=errs, predict_rel_l2=pred_err,
+        tolerance=DPT_TOL, depth_inside_0_1=inside,
+        prior_inside_0_1=pred_inside,
+        predict_ms_median=float(np.median(times)), predict_ms=times,
+        forward_ms_median=float(np.median(fwd_times)),
+        gflop=flops / 1e9, gflop_by_part={k: v / 1e9 for k, v in ops.items()},
+        weight_and_io_mb=nbytes / 1e6, bound_ms=bound_ms, bound_by=bound_by,
+        peak_memory_bytes=peak, build_s=build_s, cpu_forward_s=cpu_s)
+
+
+def online_prior_run(n_frames=20, H=320, W=640, every_frame=5,
+                     device="cuda", dpt_kw=None, infer_size=512):
+    """``SLAM(cfg, stream).run()`` tracking-only with bench.py's tracking
+    config and ``mono_prior.predict_online``: the DPT predicts every
+    ``every_frame``-th frame and every admitted frame, once each; its
+    calls against that rule, its ``.npy`` files, its summed time (CUDA
+    events around ``predict``), and a second ``SLAM`` with
+    ``predict_online: False`` reading the same priors from the cache."""
+    import numpy as np
+    import torch
+    from glorie_slam_tpu_torch import build
+    from glorie_slam_tpu_torch import slam as slam_mod
+    from glorie_slam_tpu_torch.ops import cuda_corr
+    from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
+                                                       bench_cfg)
+
+    stream = SyntheticStream(n_frames=n_frames, H=H, W=W, seed=3,
+                             motion_scale=0.02, trajectory="circuit")
+    os.makedirs(build.BUILD_ROOT, exist_ok=True)
+    make = slam_mod.MonoDepthEstimator
+    if dpt_kw:
+        import functools
+        from glorie_slam_tpu_torch.mapping import mono_prior
+        inner = mono_prior.DPTDepthModel
+        mono_prior.DPTDepthModel = functools.partial(inner, **dpt_kw)
+    slam_mod.MonoDepthEstimator = lambda cfg, device=None: make(
+        cfg, infer_size, device=device)
+    try:
+        with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+            cfg = bench_cfg(H=H, W=W, buffer=400, out=tmp)
+            cfg["mono_prior"] = {"depth": "omnidata", "predict_online": True}
+            cfg["mapping"] = {"every_frame": every_frame}
+            slam = slam_mod.SLAM(cfg, stream, device=device)
+            est, mf = slam.mono_estimator, slam.tracker.motion_filter
+            calls, admitted, dpt_events, priors = [], [], [], {}
+            predict, predictor, admit = (est.predict, mf.mono_predictor,
+                                         mf._admit)
+
+            def timed_predict(image):
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                s.record()
+                out = predict(image)
+                e.record()
+                dpt_events.append((s, e))
+                return out
+
+            def recorded(tstamp, image):
+                calls.append(int(tstamp))
+                out = predictor(tstamp, image)
+                priors[int(tstamp)] = torch.as_tensor(out).cpu()
+                return out
+
+            def recorded_admit(tstamp, *a, **kw):
+                admitted.append(int(tstamp))
+                return admit(tstamp, *a, **kw)
+
+            est.predict, mf.mono_predictor = timed_predict, recorded
+            mf._admit = recorded_admit
+            for k in cuda_corr.KERNELS:
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            slam.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in cuda_corr.KERNELS}
+            peak = torch.cuda.max_memory_allocated()
+            files = sorted(os.listdir(est.out_dir))
+            with open(os.path.join(slam.output, "logs",
+                                   "phase_times.json")) as f:
+                phases = json.load(f)["phases"]
+            cfg["mono_prior"]["predict_online"] = False
+            cached = slam_mod.SLAM(cfg, stream, device=device)
+            load = cached.tracker.motion_filter.mono_predictor
+            cache_equal = all(np.array_equal(load(t, None), p.numpy())
+                              for t, p in priors.items())
+    finally:
+        slam_mod.MonoDepthEstimator = make
+        if dpt_kw:
+            mono_prior.DPTDepthModel = inner
+    cadence = [t for t in range(n_frames) if t % every_frame == 0]
+    expected = sorted(set(cadence) | set(admitted))
+    dpt_ms = [s.elapsed_time(e) for s, e in dpt_events]
+    if sorted(calls) != expected or len(dpt_ms) != len(expected):
+        raise AssertionError(f"DPT calls {calls} ({len(dpt_ms)} predicted) "
+                             f"against cadence {cadence} and admissions "
+                             f"{admitted}")
+    if files != [f"{t:05d}.npy" for t in expected] or not cache_equal:
+        raise AssertionError(f"prior cache {files} does not hold the "
+                             "predictions")
+    for name in ("lookup_pyramid", "depth_agree"):
+        if device == "cuda" and launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched")
+    return dict(
+        frames=n_frames, every_frame=every_frame, infer_size=infer_size,
+        keyframes=slam.video.counter, admitted=len(admitted),
+        dpt_calls=len(dpt_ms), cadence_frames=cadence,
+        npy_files=len(files), cache_read_back_equal=cache_equal,
+        dpt_ms_total=sum(dpt_ms), dpt_ms_median=float(np.median(dpt_ms)),
+        run_wall_s=wall, dpt_share_of_run=sum(dpt_ms) / 1e3 / wall,
+        motion_filter_s=phases["motion_filter"]["total_s"],
+        frontend_s=phases["frontend"]["total_s"], launches=launches,
+        peak_memory_bytes=peak)
 
 
 def main():
@@ -1434,6 +1941,24 @@ def main():
     phase("pipeline", t0)
 
     t0 = time.perf_counter()
+    mono = mono_prior_check()
+    print("[mono prior] " + json.dumps(mono), flush=True)
+    print(f"[mono prior] DPT {mono['size']}x{mono['size']}: "
+          f"{mono['predict_ms_median']:.3f} ms per frame (median of "
+          f"{len(mono['predict_ms'])}), forward "
+          f"{mono['forward_ms_median']:.3f} ms, bound "
+          f"{mono['bound_ms']:.3f} ms ({mono['bound_by']}, "
+          f"{mono['gflop']:.1f} GFLOP at FP32 {FP32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s); depths inside (0, 1): {mono['depth_inside_0_1']:.3f}",
+          flush=True)
+    phase("mono prior", t0)
+
+    t0 = time.perf_counter()
+    online = online_prior_run(ONLINE_FRAMES)
+    print("[online prior] " + json.dumps(online), flush=True)
+    phase("online prior", t0)
+
+    t0 = time.perf_counter()
     step = mapping_step_check()
     print("[mapping step] " + json.dumps(step), flush=True)
     phase("mapping step", t0)
@@ -1445,7 +1970,22 @@ def main():
           "(from iters_first 1500, geo_iter_first 400, iters 400); every "
           "width is Replica's; tracking as bench.py's config (multiview "
           f"filter {mapping['multiview_thresh']}, no final BA)", flush=True)
+    for name, vals in mapping["metrics"].items():
+        print(f"[mapping] {name}: " + json.dumps(vals), flush=True)
+    print(f"[mapping] lpips_variant {mapping['lpips_variant']}; evaluation "
+          f"s {json.dumps(mapping['eval_s'])}; mesh "
+          f"{json.dumps(mapping['mesh'])}", flush=True)
     phase("mapping", t0)
+
+    t0 = time.perf_counter()
+    oracle = oracle_evaluation()
+    print("[oracle evaluation] " + json.dumps(oracle), flush=True)
+    phase("oracle evaluation", t0)
+
+    t0 = time.perf_counter()
+    evals = eval_modules_check()
+    print("[eval modules] " + json.dumps(evals), flush=True)
+    phase("eval modules", t0)
 
     # A and B launch on the tracking path (the pipeline); C, D and E on
     # the volume path

@@ -27,8 +27,9 @@ every parameter has a gradient tensor at every step (zeros where it took no
 part), so all groups count steps together. Gradients are masked before the
 step.
 
-Not here: the JAX mapper's best-effort visual diagnostics (a later slice
-ports ``utils/visualizer.py``) and the render and mesh evaluations.
+``eval_kf_imgs`` and ``eval_imgs`` run the render evaluations
+(``utils/eval_render.py``). Not here: the JAX mapper's best-effort visual
+diagnostics (``utils/visualizer.py``, not ported yet).
 """
 
 import os
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from ..geom import alignment, lie
+from ..utils import eval_render
 from ..utils.buckets import bucket
 from . import sampling
 from .decoders import PointDecoders
@@ -697,3 +699,9 @@ class Mapper:
             self.npc.count, self.npc.geo_feats, self.npc.col_feats, r_query,
             stage="color")
         return depth, color, render_depth.cpu().numpy()
+
+    def eval_kf_imgs(self):
+        return eval_render.eval_kf_imgs(self)
+
+    def eval_imgs(self):
+        return eval_render.eval_imgs(self)

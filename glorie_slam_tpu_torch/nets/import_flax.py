@@ -1,7 +1,8 @@
 """Weight carriers: JAX-package params -> this port's ``state_dict``s.
 
 ``flax_params_to_state_dict`` carries ``TrackerNet``'s DroidNet params;
-``decoder_params_to_state_dict`` the mapper's ``PointDecoders`` params.
+``decoder_params_to_state_dict`` the mapper's ``PointDecoders`` params;
+``dpt_params_to_state_dict`` the mono prior's ``DPTDepthModel`` params.
 
 The JAX package keeps its DroidNet params as a nested dict (flax layout:
 HWIO conv kernels, and three double-width convs that fuse reference
@@ -117,4 +118,28 @@ def decoder_params_to_state_dict(params) -> Dict[str, torch.Tensor]:
             state[".".join(prefix + (key,))] = torch.tensor(arr)
 
     walk(params, ())
+    return state
+
+
+def dpt_params_to_state_dict(variables, keys) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``DPTDepthModel`` params (nested dict of arrays,
+    with or without the top-level "params" key) -> the port's
+    ``mapping.dpt.DPTDepthModel`` state_dict entries ``keys`` (omnidata
+    names), through ``import_dpt.flax_path``: conv kernels HWIO -> OIHW,
+    Dense kernels transposed. Raises on a key without a flax parameter."""
+    from ..mapping.import_dpt import flax_path
+
+    params = variables.get("params", variables)
+    state = {}
+    for k in keys:
+        path, kind = flax_path(k)
+        arr = None if path is None else _leaf(params, path)
+        if arr is None:
+            raise KeyError(f"no JAX DPT parameter for {k}")
+        arr = np.asarray(arr, np.float32)
+        if kind == "conv":
+            arr = np.transpose(arr, (3, 2, 0, 1))
+        elif kind == "linear":
+            arr = arr.T
+        state[k] = torch.tensor(arr)
     return state

@@ -1,23 +1,30 @@
-"""SLAM entry point: tracking and mapping.
+"""SLAM entry point: tracking, mapping and the end-of-run evaluations.
 
 Counterpart of ``glorie_slam_tpu/slam.py``: ``SLAM(cfg, stream).run()``
 tracks every frame of the stream and, unless ``only_tracking``, maps each
 ``mapping.every_keyframe``-th keyframe, on a worker thread against a
 snapshot of the video (``mapping.async_mapping``, the default) or inside
-the tracker's handshake. It then terminates: the worker is joined, the
+the tracker's handshake. Mono-depth priors come from the omnidata DPT run
+online (``mono_prior.predict_online``: ``mapping/mono_prior.py``, cached as
+``.npy``) or from that cache. It then terminates: the worker is joined, the
 final global BA (``tracking.backend.final_ba``), the mapper's
 ``final_refine`` and point-cloud files, ``video.npz``, the keyframe ATE,
-the trajectory filler and the full-trajectory ATE (``traj/``), and the
-phase times (``logs/phase_times.json``). ``tracking.pretrained`` and
-``mapping.pretrained`` load ``droid.pth`` and ``middle_fine.pt`` where the
+the trajectory filler and the full-trajectory ATE (``traj/``); with the
+mapper, the keyframe render metrics (``eval_kf_imgs``), the TSDF mesh
+(``generate_mesh_kf``), the full-trajectory render metrics
+(``eval_imgs``) and, where ``meshing.gt_mesh_path`` exists, the
+reconstruction metrics (``logs/metrics_recon.txt``); and the phase times
+(``logs/phase_times.json``). ``tracking.pretrained``,
+``mapping.pretrained`` and ``mono_prior.depth_pretrained`` load
+``droid.pth``, ``middle_fine.pt`` and the omnidata checkpoint where the
 files exist; otherwise the weights are random.
 
-Not here: the render and mesh evaluations and the visualizer (a later
-slice), checkpoints and resume, wandb, online mono-depth prediction, and
-the JAX package's ahead-of-time compile warm-up and shape profile (XLA
-machinery with no counterpart in eager PyTorch). A mapper that fails, or
-an evaluation that fails, fails the run: the JAX package's fall-back to
-tracking alone and its best-effort evaluations are not copied.
+Not here: the visualizer, checkpoints and resume, wandb, and the JAX
+package's ahead-of-time compile warm-up and shape profile (XLA machinery
+with no counterpart in eager PyTorch). A mapper, an online prior or an
+evaluation that fails fails the run: the JAX package's fall-backs (to
+tracking alone, to cached priors) and its best-effort evaluations are not
+copied.
 """
 
 import os
@@ -28,11 +35,14 @@ from .core.depth_video import DepthVideo
 from .device import resolve_device
 from .mapping.async_worker import AsyncMapper
 from .mapping.mapper import Mapper
+from .mapping.mono_prior import MonoDepthEstimator
 from .nets.tracker_net import TrackerNet
 from .tracking.backend import Backend
 from .tracking.tracker import Tracker
 from .tracking.trajectory_filler import PoseTrajectoryFiller
+from .utils.eval_recon import eval_recon_with_cfg
 from .utils.eval_traj import full_traj_eval, kf_traj_eval
+from .utils.generate_mesh import generate_mesh_kf
 from .utils.phase_timer import PhaseTimer
 from .utils.printer import Printer
 
@@ -106,16 +116,17 @@ class SLAM:
             timer=self.timer)
 
     def _make_mono_predictor(self, cfg):
-        """Mono-depth priors from the cache written beside the output
-        (``load_mono_depth``); a frame without one gets none."""
+        """Mono-depth priors: the DPT online (``self.mono_estimator``, its
+        predictions cached) with ``mono_prior.predict_online``, else the
+        cache written beside the output (``load_mono_depth``), where a
+        frame without one gets none."""
         mp_cfg = cfg.get("mono_prior", {})
+        self.mono_estimator = None
         if not mp_cfg:
             return None
         if mp_cfg.get("predict_online", False):
-            raise NotImplementedError(
-                "online mono-depth prediction is not ported yet; cache the "
-                f"priors under {cfg['data']['output']}/{cfg['scene']}"
-                "_priors/depths")
+            self.mono_estimator = MonoDepthEstimator(cfg, device=self.device)
+            return self.mono_estimator.predict_and_cache
 
         def load(tstamp, image):
             try:
@@ -139,9 +150,11 @@ class SLAM:
 
     def terminate(self):
         """Join the mapper -> final BA -> final refine -> save video ->
-        keyframe ATE -> trajectory filler and full ATE -> phase times.
-        Nothing overlaps these phases, so each ends with a device
-        synchronize and its time includes its work."""
+        keyframe ATE -> trajectory filler and full ATE -> (with the mapper)
+        keyframe render metrics -> mesh -> full-trajectory render metrics
+        -> reconstruction metrics -> phase times. Nothing overlaps these
+        phases, so each ends with a device synchronize and its time
+        includes its work."""
         timer = self.timer
         timer.sync = True
         if self.async_mapper is not None:
@@ -166,8 +179,36 @@ class SLAM:
                                            "full_traj", self.stream,
                                            self.printer)
         np.save(f"{traj_dir}/full_traj_w2c.npy", np.asarray(est_w2c))
+        if self.mapper is not None:
+            self.evaluate()
         timer.dump(f"{self.output}/logs/phase_times.json",
                    printer=self.printer)
         self.printer.print("Metrics have been written to logs/",
                            subsystem="eval")
         self.printer.terminate()
+
+    def evaluate(self):
+        """The mapper's evaluations, in the JAX package's order, each in
+        its own phase (reference slam.py:176-187)."""
+        timer, cfg = self.timer, self.cfg
+        with timer.phase("eval_kf_imgs"):
+            self.mapper.eval_kf_imgs()
+        with timer.phase("generate_mesh_kf"):
+            mesh = generate_mesh_kf(cfg, stream=self.stream,
+                                    printer=self.printer, device=self.device)
+        with timer.phase("eval_imgs"):
+            self.mapper.eval_imgs()
+        gt_mesh = cfg.get("meshing", {}).get("gt_mesh_path", "")
+        if not (gt_mesh and os.path.exists(gt_mesh)):
+            return
+        if mesh is None or len(mesh[1]) == 0:
+            # nothing rendered or no surface crossed: nothing to score
+            self.printer.print("No mesh to evaluate against the ground "
+                               "truth.", subsystem="eval")
+            return
+        with timer.phase("eval_recon"):
+            result = eval_recon_with_cfg(cfg, printer=self.printer,
+                                         device=self.device)
+        with open(f"{self.output}/logs/metrics_recon.txt", "w+") as fp:
+            for k, v in result.items():
+                fp.write(f"{k}: {v}\n")

@@ -7,6 +7,13 @@ become keyframes (cnet context and the store writes only then). The
 tracker calls ``prefetch`` with the next frame before the frontend runs,
 so the next frame's encode and probe are queued while the card is still
 busy with this frame (the one-frame lookahead of the JAX package).
+
+With ``predict_every`` (``mapping.every_frame`` when the prior is predicted
+online) the mono prior is also predicted (and cached) at every frame with
+``tstamp % predict_every == 0``, admitted or not, so that the
+full-trajectory render evaluation finds a prior for each frame it renders;
+an admitted frame on that cadence reuses the prediction (JAX
+``motion_filter.py:65-69,135-141``).
 """
 
 import numpy as np
@@ -20,13 +27,15 @@ _BF = torch.bfloat16
 
 
 class MotionFilter:
-    def __init__(self, tracker_net, video, thresh=2.5, mono_predictor=None):
+    def __init__(self, tracker_net, video, thresh=2.5, mono_predictor=None,
+                 predict_every=None):
         """mono_predictor: callable(tstamp, image_hw3_01) -> (H, W) depth
-        or None."""
+        or None; predict_every: its cadence (None: admitted frames only)."""
         self.tn = tracker_net
         self.video = video
         self.thresh = thresh
         self.mono_predictor = mono_predictor
+        self.predict_every = predict_every
         self.fmap = None
         self.net = None
         self.inp = None
@@ -77,17 +86,21 @@ class MotionFilter:
             image = self._image(image)
             gmap, delta_norm = self._encode_and_flow(image)
 
+        mono = None
+        if (self.mono_predictor is not None and self.predict_every
+                and int(tstamp) % self.predict_every == 0):
+            mono = self.mono_predictor(tstamp, image)
         if self.video.counter == 0:
-            self._admit(tstamp, image, intrinsics, gmap, first=True)
+            self._admit(tstamp, image, intrinsics, gmap, mono, first=True)
             return True
         if float(delta_norm) > self.thresh:
-            self._admit(tstamp, image, intrinsics, gmap)
+            self._admit(tstamp, image, intrinsics, gmap, mono)
             return True
         return False
 
-    def _admit(self, tstamp, image, intrinsics, gmap, first=False):
-        mono = (self.mono_predictor(tstamp, image)
-                if self.mono_predictor is not None else None)
+    def _admit(self, tstamp, image, intrinsics, gmap, mono, first=False):
+        if mono is None and self.mono_predictor is not None:
+            mono = self.mono_predictor(tstamp, image)
         intr8 = np.asarray(intrinsics, np.float32) / self.video.down_scale
         v = self.video
         if first:

@@ -26,9 +26,12 @@ class Tracker:
             self.every_kf = cfg["mapping"]["every_keyframe"]
         self.timer = timer if timer is not None else PhaseTimer()
         tcfg = cfg["tracking"]
+        predict_every = None
+        if cfg.get("mono_prior", {}).get("predict_online"):
+            predict_every = int(cfg.get("mapping", {}).get("every_frame") or 1)
         self.motion_filter = MotionFilter(
             tracker_net, video, thresh=tcfg["motion_filter"]["thresh"],
-            mono_predictor=mono_predictor)
+            mono_predictor=mono_predictor, predict_every=predict_every)
         self.frontend = Frontend(tracker_net, video, cfg)
         self.online_ba = Backend(tracker_net, video, cfg)
         self.enable_online_ba = tcfg["frontend"]["enable_online_ba"]

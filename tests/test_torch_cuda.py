@@ -384,3 +384,26 @@ def test_async_snapshot_on_the_card(dev):
         for a, b in zip(got[1:5], want[1:]):
             assert (a == b).all()
     assert any(r[5] > r[0] for r in rec.records)
+
+
+def test_dpt_on_the_card_matches_cpu(dev):
+    """The DPT at the checkpoint's widths (768 dims, 12 blocks, 12 heads,
+    256 features), here at 128x128, and ``MonoDepthEstimator.predict`` of a
+    96x160 frame: the card against the CPU, every tap and the prior to
+    ``chip_smoke.DPT_TOL`` rel-L2 (float32, TF32 off)."""
+    import chip_smoke
+
+    res = chip_smoke.mono_prior_check(size=128, H=96, W=160, iters=2)
+    assert max(res["rel_l2_card_vs_cpu"].values()) <= chip_smoke.DPT_TOL
+    assert res["predict_rel_l2"] <= chip_smoke.DPT_TOL
+    assert res["gflop"] > 0 and res["bound_by"] == "operations"
+
+
+def test_tsdf_and_lpips_on_the_card_match_cpu(dev):
+    """TSDF integration of one synthetic frame and LPIPS, card against CPU
+    (``chip_smoke.eval_modules_check``'s tolerances)."""
+    import chip_smoke
+
+    res = chip_smoke.eval_modules_check(H=120, W=160)
+    assert max(res["voxels_off"].values()) <= 1e-4
+    assert res["lpips_rel"] <= 1e-4 and res["observed"] > 0

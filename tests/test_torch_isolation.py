@@ -72,3 +72,18 @@ def test_walk_covers_the_mapping_slice():
                 "mapping.point_cloud", "mapping.renderer",
                 "mapping.sampling", "nets.import_torch", "ops.knn"):
         assert f"glorie_slam_tpu_torch.{mod}" in names, mod
+
+
+def test_walk_covers_the_prior_and_evaluations():
+    """The import check walks the mono prior's and the evaluations'
+    modules too (``cv2`` is imported only inside the PNG dump)."""
+    names = set(_modules())
+    for mod in ("mapping.dpt", "mapping.import_dpt", "mapping.mono_prior",
+                "mapping.mesher", "utils.eval_recon", "utils.eval_render",
+                "utils.generate_mesh", "utils.image_metrics"):
+        assert f"glorie_slam_tpu_torch.{mod}" in names, mod
+    path = os.path.join(os.path.dirname(glorie_slam_tpu_torch.__file__),
+                        "utils", "eval_render.py")
+    with open(path) as f:
+        src = f.read()
+    assert not re.search(r"^import cv2|^from cv2", src, re.M)

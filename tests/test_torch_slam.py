@@ -209,9 +209,10 @@ def test_slam_run_tracking_only(tmp_path):
 
 
 def test_slam_refuses_what_is_not_ported(tmp_path):
-    """Online mono-depth prediction is not ported: it raises. The mapper,
-    refused before it was ported, is now built (``test_torch_async_mapper``
-    and ``test_torch_mapper`` run it)."""
+    """A mono prior other than the omnidata DPT is not ported: it raises.
+    The mapper and the online prior, refused before they were ported, are
+    now built (``test_torch_async_mapper``, ``test_torch_mapper`` and
+    ``test_torch_mono_prior`` run them)."""
     stream = SyntheticStream(n_frames=2, H=H, W=W, seed=3)
     cfg = base_cfg(H=H, W=W, buffer=8, out=str(tmp_path))
     cfg.update(mapping_cfg())
@@ -221,8 +222,8 @@ def test_slam_refuses_what_is_not_ported(tmp_path):
     assert slam.mapper is not None and slam.async_mapper is not None
     slam.async_mapper.join()
     cfg["only_tracking"] = True
-    cfg["mono_prior"] = {"predict_online": True}
-    with pytest.raises(NotImplementedError, match="mono-depth"):
+    cfg["mono_prior"] = {"predict_online": True, "depth": "dpt_beit"}
+    with pytest.raises(NotImplementedError, match="dpt_beit"):
         SLAM(cfg, stream, device="cpu")
 
 
