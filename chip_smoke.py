@@ -81,7 +81,26 @@ Phases, each printing its wall seconds:
    fails if a file is missing. The cached true-depth priors stay: a
    random-weight DPT's priors would starve the mapper;
 10. eval modules: TSDF integration of one frame and LPIPS, card against
-    CPU (``eval_modules_check``).
+    CPU (``eval_modules_check``);
+11. entry point (``entry_point_phase``): a 7-Scenes-layout scene written
+    here (the synthetic circuit at 7-Scenes' 480x640 and camera, PNG
+    colour, 16-bit depth, pose files) and a scene YAML inheriting from
+    ``configs/7scenes/7scenes.yaml`` (384x512 output, buffer 600, DBA, the
+    online omnidata DPT at full width; every frame admitted and kept, a
+    checkpoint every ``ENTRY_CHECKPOINT_EVERY`` keyframes); ``python -m
+    glorie_slam_tpu_torch.cli <yaml> --only_tracking --max_frames 30`` in
+    a subprocess, its outputs checked (``cfg.yaml``, ``video.npz``,
+    ``traj/``, ``logs/phase_times.json``, ``state.npz``); a second run with ``--resume`` from the mid-run
+    checkpoint (keyframes, timestamps, the largest keyframe-pose
+    difference from the first run: ``index_add`` sums in atomic order on
+    the card, so no bit equality is asserted); the checkpoint loaded into
+    a ``SLAM`` here and saved again, equal array for array; frames/s,
+    KF/s, read + decode + resize ms per frame, checkpoint seconds and
+    bytes, DPT calls, the A and B launches of both runs (read from the
+    ``kernel_launches`` of their ``phase_times.json``: each subprocess
+    starts at 0), and a
+    Replica-layout JPEG frame, which raises the ImportError naming cv2
+    (or decodes where cv2 is installed).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -1885,6 +1904,229 @@ def online_prior_run(n_frames=20, H=320, W=640, every_frame=5,
         peak_memory_bytes=peak)
 
 
+ENTRY_FRAMES = 30
+ENTRY_CHECKPOINT_EVERY = 10
+SEVEN_SCENES_K = (532.57, 531.54, 319.5, 239.5)   # configs/7scenes/7scenes.yaml
+# an 8x8 baseline JPEG (OpenCV, quality 50): the colour frame of the
+# Replica-layout probe
+TINY_JPEG = (
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDABALDA4MChAODQ4SERATGCgaGBYWGDEjJR0oOjM9"
+    "PDkzODdASFxOQERXRTc4UG1RV19iZ2hnPk1xeXBkeFxlZ2P/2wBDARESEhgVGC8aGi9jQjhC"
+    "Y2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2P/wAAR"
+    "CAAIAAgDASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAA"
+    "AgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkK"
+    "FhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWG"
+    "h4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl"
+    "5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREA"
+    "AgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYk"
+    "NOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOE"
+    "hYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk"
+    "5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEAPwCIW1oh8qC3023mRiHE90HxjqMDbg5ooopD"
+    "P//Z")
+ENTRY_SCENE = """\
+inherit_from: {root}/configs/7scenes/7scenes.yaml
+scene: synth
+setting: smoke
+tracking:
+  checkpoint_every: {every}
+  motion_filter:
+    thresh: 0.0
+  frontend:
+    keyframe_thresh: 0.0
+data:
+  input_folder: {data}
+  output: {out}
+"""
+
+
+def run_cli(args, log):
+    """``python -m glorie_slam_tpu_torch.cli <args>`` from the checkout, its
+    output to ``log``; raises on a non-zero exit. Returns its wall s."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.run(
+            [sys.executable, "-m", "glorie_slam_tpu_torch.cli", *args],
+            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+            timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        with open(log) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"CLI {args} exited {proc.returncode}:\n{tail}")
+    return wall
+
+
+def jpeg_probe(tmp):
+    """A Replica-layout scene of one 8x8 JPEG frame: reading it decodes
+    through cv2, or raises the ImportError that names cv2 where it is not
+    installed."""
+    import base64
+
+    import numpy as np
+    from glorie_slam_tpu_torch.utils import datasets
+
+    root = os.path.join(tmp, "replica")
+    os.makedirs(os.path.join(root, "results"))
+    with open(os.path.join(root, "results", "frame000000.jpg"), "wb") as f:
+        f.write(base64.b64decode(TINY_JPEG))
+    np.savetxt(os.path.join(root, "traj.txt"), np.eye(4).reshape(1, 16))
+    cam = {"H": 8, "W": 8, "fx": 8.0, "fy": 8.0, "cx": 3.5, "cy": 3.5,
+           "H_out": 8, "W_out": 8, "H_edge": 0, "W_edge": 0,
+           "png_depth_scale": 1000.0}
+    ds = datasets.get_dataset({"dataset": "replica", "cam": cam, "stride": 1,
+                               "max_frames": -1,
+                               "data": {"input_folder": root}})
+    try:
+        color = ds.get_color(0)
+    except ImportError as e:
+        if "cv2" not in str(e):
+            raise
+        return {"jpeg": "ImportError", "message": str(e)}
+    if color.shape != (8, 8, 3) or not np.isfinite(color).all():
+        raise AssertionError("JPEG decoded to a wrong frame")
+    return {"jpeg": "decoded with cv2"}
+
+
+def entry_point_phase(n_frames=ENTRY_FRAMES, every=ENTRY_CHECKPOINT_EVERY,
+                      H=480, W=640, device="cuda", scene_extra=""):
+    """The CLI on a 7-Scenes-layout scene written here (the synthetic
+    circuit rendered at 7-Scenes' 480x640 and its camera, PNG colour and
+    16-bit depth in millimetres, pose files) with a scene YAML that inherits
+    from ``configs/7scenes/7scenes.yaml`` (384x512 after resize and crop,
+    buffer 600, DBA, the online omnidata DPT at full width with random
+    weights); cuts: every frame admitted and kept (random weights give no
+    meaningful flow), a checkpoint every ``every`` keyframes. Then a second
+    CLI run resumed from the mid-run checkpoint, held against the first;
+    the checkpoint loaded into a ``SLAM`` here and saved again, equal array
+    for array; frame read times; the JPEG probe."""
+    import numpy as np
+    import torch
+    from glorie_slam_tpu_torch import build
+    from glorie_slam_tpu_torch.slam import SLAM
+    import yaml
+    from glorie_slam_tpu_torch.utils import datasets
+    from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
+                                                       write_7scenes)
+
+    os.makedirs(build.BUILD_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+        intr = [k * W / 640 for k in SEVEN_SCENES_K]
+        stream = SyntheticStream(n_frames=n_frames, H=H, W=W, seed=3,
+                                 motion_scale=0.02, trajectory="circuit",
+                                 intrinsics=intr)
+        t0 = time.perf_counter()
+        write_7scenes(os.path.join(tmp, "data"), stream)
+        write_s = time.perf_counter() - t0
+        scene = os.path.join(tmp, "synth.yaml")
+        with open(scene, "w") as f:
+            f.write(ENTRY_SCENE.format(root=ROOT, every=every,
+                                       data=os.path.join(tmp, "data"),
+                                       out=os.path.join(tmp, "out"))
+                    + scene_extra)
+        out = os.path.join(tmp, "out", "smoke", "synth")
+        args = [scene, "--only_tracking", "--max_frames", str(n_frames)]
+        if device != "cuda":
+            args += ["--device", device]
+        first_s = run_cli(args, os.path.join(tmp, "first.log"))
+        for f in ("cfg.yaml", "video.npz", "traj/metrics_kf_traj.txt",
+                  "traj/full_traj_w2c.npy", "logs/phase_times.json",
+                  "state.npz"):
+            if not os.path.exists(os.path.join(out, f)):
+                raise AssertionError(f"the CLI run wrote no {f}")
+        with open(os.path.join(out, "logs", "phase_times.json")) as f:
+            times = json.load(f)
+        launches = times["kernel_launches"]
+        priors = os.path.join(tmp, "out", "synth_priors", "depths")
+        dpt_calls = len(os.listdir(priors)) if os.path.isdir(priors) else 0
+        state = os.path.join(tmp, "state_mid.npz")
+        os.replace(os.path.join(out, "state.npz"), state)
+        first = dict(np.load(os.path.join(out, "video.npz")))
+        ckpt_meta = json.loads(np.load(state)["__meta__"].tobytes())
+
+        resume_s = run_cli(args + ["--resume", state],
+                           os.path.join(tmp, "resume.log"))
+        second = dict(np.load(os.path.join(out, "video.npz")))
+        with open(os.path.join(out, "logs", "phase_times.json")) as f:
+            resume_times = json.load(f)
+        resume_launches = resume_times["kernel_launches"]
+        resume_times = resume_times["phases"]
+
+        # the checkpoint into a SLAM here, saved again: the same file
+        with open(os.path.join(out, "cfg.yaml")) as f:
+            cfg = yaml.full_load(f)
+        cfg["mono_prior"]["predict_online"] = False   # the state has no DPT
+        cfg["silence"] = True
+        ds = datasets.get_dataset(cfg)
+        slam = SLAM(cfg, ds, device=device)
+        t0 = time.perf_counter()
+        nxt = slam.load_state(state)
+        load_s = time.perf_counter() - t0
+        again = os.path.join(tmp, "state_again.npz")
+        t0 = time.perf_counter()
+        slam.save_state(again, nxt)
+        save_s = time.perf_counter() - t0
+        A, B = np.load(state), np.load(again)
+        differ = sorted(set(A.files) ^ set(B.files))
+        buffer_bytes = 0
+        for k in sorted(set(A.files) & set(B.files)):
+            a, b = A[k], B[k]                 # each decompressed once
+            buffer_bytes += a.nbytes
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                differ.append(k)
+        if differ:
+            raise AssertionError(f"state saved again differs: {differ[:8]}")
+        file_bytes = os.path.getsize(state)
+        del slam
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # host read + decode + resize per frame (colour and depth)
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds[i]
+        read_ms = 1e3 * (time.perf_counter() - t0) / len(ds)
+        jpeg = jpeg_probe(tmp)
+
+    kf = int(first["poses"].shape[0])
+    same_ts = (second["timestamps"].shape == first["timestamps"].shape
+               and np.array_equal(second["timestamps"], first["timestamps"]))
+    pose_diff = (float(np.abs(second["poses"] - first["poses"]).max())
+                 if same_ts else None)
+    phases = times["phases"]
+    loop = ("motion_filter", "prefetch", "frontend", "online_ba")
+    loop_s = sum(phases[p]["total_s"] for p in loop if p in phases)
+    if device == "cuda":
+        for name in ("lookup_pyramid", "depth_agree"):
+            if launches[name] <= 0 or resume_launches[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched in the "
+                                     "CLI runs")
+    return dict(
+        frames=n_frames, size=[H, W], out_size=[cfg["cam"]["H_out"],
+                                                cfg["cam"]["W_out"]],
+        buffer=cfg["tracking"]["buffer"], ba_type=cfg["tracking"][
+            "backend"]["BA_type"], checkpoint_every=every,
+        keyframes=kf, resumed_keyframes=int(second["poses"].shape[0]),
+        resumed_timestamps_equal=bool(same_ts),
+        resumed_max_pose_diff=pose_diff,
+        checkpoint_next_frame=ckpt_meta["next_frame"],
+        checkpoints_saved=phases.get("checkpoint", {}).get("calls", 0),
+        checkpoint_save_s_cli=phases.get("checkpoint", {}).get("total_s"),
+        checkpoint_load_s_cli=resume_times.get("load_checkpoint", {}).get(
+            "total_s"),
+        checkpoint_load_s=load_s, checkpoint_save_s=save_s,
+        checkpoint_file_bytes=file_bytes,
+        state_arrays_bytes=buffer_bytes,
+        cli_first_wall_s=first_s, cli_resume_wall_s=resume_s,
+        tracking_loop_s=loop_s, frames_per_s=n_frames / loop_s,
+        keyframes_per_s=times.get("keyframe_fps"),
+        dpt_calls=dpt_calls, read_decode_resize_ms=read_ms,
+        scene_write_s=write_s,
+        launches=launches, resume_launches=resume_launches,
+        phases={k: round(v["total_s"], 3) for k, v in phases.items()},
+        **jpeg)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1986,6 +2228,34 @@ def main():
     evals = eval_modules_check()
     print("[eval modules] " + json.dumps(evals), flush=True)
     phase("eval modules", t0)
+
+    t0 = time.perf_counter()
+    entry = entry_point_phase()
+    print("[entry point] " + json.dumps(entry), flush=True)
+    gpu = gpu_line()
+    print(f"[entry point] {gpu}: CLI on a 7-Scenes-layout scene, "
+          f"{entry['frames']} frames {entry['size'][0]}x{entry['size'][1]} "
+          f"-> {entry['out_size'][0]}x{entry['out_size'][1]}, buffer "
+          f"{entry['buffer']}: {entry['frames_per_s']:.3f} frames/s over "
+          f"the tracking loop ({entry['checkpoint_save_s_cli']:.1f} s of "
+          f"checkpoint saves apart), {entry['keyframes_per_s']:.3f} KF/s; "
+          f"read + decode + resize {entry['read_decode_resize_ms']:.2f} "
+          f"ms per frame; checkpoint save "
+          f"{entry['checkpoint_save_s']:.2f} s, load "
+          f"{entry['checkpoint_load_s']:.2f} s, file "
+          f"{entry['checkpoint_file_bytes']} bytes of "
+          f"{entry['state_arrays_bytes']} in arrays; DPT calls "
+          f"{entry['dpt_calls']}; launches A "
+          f"{entry['launches']['lookup_pyramid']} B "
+          f"{entry['launches']['depth_agree']} (resumed run: A "
+          f"{entry['resume_launches']['lookup_pyramid']} B "
+          f"{entry['resume_launches']['depth_agree']}); resumed keyframes "
+          f"{entry['resumed_keyframes']} of {entry['keyframes']}, timestamps "
+          f"{'equal' if entry['resumed_timestamps_equal'] else 'differ'}, "
+          f"largest keyframe-pose difference "
+          f"{entry['resumed_max_pose_diff']}; JPEG: {entry['jpeg']}",
+          flush=True)
+    phase("entry point", t0)
 
     # A and B launch on the tracking path (the pipeline); C, D and E on
     # the volume path

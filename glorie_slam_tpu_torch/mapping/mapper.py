@@ -28,8 +28,11 @@ part), so all groups count steps together. Gradients are masked before the
 step.
 
 ``eval_kf_imgs`` and ``eval_imgs`` run the render evaluations
-(``utils/eval_render.py``). Not here: the JAX mapper's best-effort visual
-diagnostics (``utils/visualizer.py``, not ported yet).
+(``utils/eval_render.py``). Unless ``silence``, the first mapped keyframe
+and every ``Visualizer.freq``-th one (50) are re-rendered after their
+optimisation for the visualizer's panels (``utils/visualizer.py``; skipped
+with a message without matplotlib); a failure there fails the run, unlike
+the JAX mapper's best-effort ``except``.
 """
 
 import os
@@ -40,6 +43,7 @@ import torch
 from ..geom import alignment, lie
 from ..utils import eval_render
 from ..utils.buckets import bucket
+from ..utils.visualizer import Visualizer
 from . import sampling
 from .decoders import PointDecoders
 from .import_pointslam import load_pointslam_geo_decoder
@@ -218,6 +222,12 @@ class Mapper:
         self.init = True
         self.frame_reader = slam.stream
         self.n_img = len(slam.stream)
+        self.visualizer = Visualizer(
+            os.path.join(self.output, "mapping_vis"),
+            img_dir=os.path.join(self.output, "rendered_image"),
+            printer=self.printer)
+        self.save_rendered_image = m.get("save_rendered_image", False)
+        self._cur_video_idx = self._cur_mono = None
 
     def _print(self, msg, sub="mapper"):
         self.printer.print(msg, subsystem=sub)
@@ -232,7 +242,7 @@ class Mapper:
         return c2w
 
     def _load_mono(self, idx):
-        from ..slam import load_mono_depth
+        from ..utils.datasets import load_mono_depth
 
         try:
             return load_mono_depth(idx, self.cfg)
@@ -534,6 +544,29 @@ class Mapper:
         finally:
             release(self.decoders, geo, col)
         self._print("Mapper has updated point features.")
+        if not color_refine and not self.cfg.get("silence", False):
+            self._visualize(cur_idx, num_joint_iters - 1, cur_depth,
+                            cur_gt_color, init)
+
+    def _visualize(self, cur_idx, iter_i, cur_depth, cur_gt_color, init):
+        """The visualizer's panels on its cadence (the first mapped
+        keyframe and every ``freq``-th), the keyframe re-rendered (JAX
+        mapper.py:600-632)."""
+        vis = self.visualizer
+        if not (init or (vis.freq > 0 and cur_idx % vis.freq == 0)):
+            return
+        video_idx, mono = self._cur_video_idx, self._cur_mono
+        _, mono_vis, droid_vis = self.get_c2w_and_depth(video_idx, cur_idx,
+                                                        mono)
+        rendered_depth = rendered_color = None
+        out = self.render_keyframe_img(video_idx, cur_idx, mono)
+        if out is not None:
+            rendered_depth, rendered_color, _ = out
+        gt_depth = self.frame_reader[int(cur_idx)][2]
+        vis.vis(cur_idx, iter_i, gt_depth, cur_depth, droid_vis, mono_vis,
+                cur_gt_color, rendered_depth, rendered_color,
+                freq_override=init,
+                save_rendered_image=self.save_rendered_image)
 
     # ------------------------------------------------------------------
     def _deform_cloud(self):
@@ -569,6 +602,8 @@ class Mapper:
             video_idx, idx, mono_depth, print_info=True)
         if cur_c2w is None:
             return False
+        # for the visualizer's re-render after the optimisation
+        self._cur_video_idx, self._cur_mono = video_idx, mono_depth
         if self.render_depth_type == "proxy":
             anchor_depth = droid_depth.cpu().numpy()
             if depth_wq is not None:

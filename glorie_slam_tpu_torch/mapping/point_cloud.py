@@ -103,6 +103,10 @@ class NeuralPointCloud:
         self.full_pcl = z(buf, self.H, self.W, 3, dtype=torch.bfloat16)
         self.full_mask = z(buf, self.H, self.W, dtype=torch.bool)
         self.generator = torch.Generator().manual_seed(seed)
+        # the JAX package's PRNG key (uint32 (2,)) where a checkpoint gave
+        # one; else ``utils/checkpoint.py`` writes ``PRNGKey(seed)``
+        self.seed = seed
+        self.key = None
 
     def pts_num(self):
         return self.count

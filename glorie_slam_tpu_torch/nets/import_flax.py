@@ -143,3 +143,21 @@ def dpt_params_to_state_dict(variables, keys) -> Dict[str, torch.Tensor]:
             arr = arr.T
         state[k] = torch.tensor(arr)
     return state
+
+
+def state_dict_to_decoder_params(state) -> Dict[str, dict]:
+    """The inverse of ``decoder_params_to_state_dict``: the port's
+    ``PointDecoders`` state_dict -> the JAX package's params tree (nested
+    dicts of float32 numpy arrays, no top-level "params" key); ``weight``
+    (out, in) becomes the Dense ``kernel`` (in, out)."""
+    params = {}
+    for key, val in state.items():
+        *path, leaf = key.split(".")
+        arr = val.detach().float().cpu().numpy()
+        if leaf == "weight":
+            leaf, arr = "kernel", arr.T
+        node = params
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return params

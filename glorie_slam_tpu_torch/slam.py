@@ -19,12 +19,17 @@ reconstruction metrics (``logs/metrics_recon.txt``); and the phase times
 ``droid.pth``, ``middle_fine.pt`` and the omnidata checkpoint where the
 files exist; otherwise the weights are random.
 
-Not here: the visualizer, checkpoints and resume, wandb, and the JAX
-package's ahead-of-time compile warm-up and shape profile (XLA machinery
-with no counterpart in eager PyTorch). A mapper, an online prior or an
-evaluation that fails fails the run: the JAX package's fall-backs (to
-tracking alone, to cached priors) and its best-effort evaluations are not
-copied.
+``tracking.checkpoint_every`` N > 0 saves the whole SLAM state to
+``{output}/state.npz`` every N keyframes (``save_state``, in the JAX
+package's layout: ``utils/checkpoint.py``), and ``run(resume_from=path)``
+continues from such a file. With ``wandb: True`` a wandb run is opened
+where ``wandb`` is installed (a message says so where it is not).
+
+Not here: the JAX package's ahead-of-time compile warm-up and shape profile
+(XLA machinery with no counterpart in eager PyTorch). A mapper, an online
+prior or an evaluation that fails fails the run: the JAX package's
+fall-backs (to tracking alone, to cached priors) and its best-effort
+evaluations are not copied.
 """
 
 import os
@@ -37,9 +42,12 @@ from .mapping.async_worker import AsyncMapper
 from .mapping.mapper import Mapper
 from .mapping.mono_prior import MonoDepthEstimator
 from .nets.tracker_net import TrackerNet
+from .ops import cuda_corr
 from .tracking.backend import Backend
 from .tracking.tracker import Tracker
 from .tracking.trajectory_filler import PoseTrajectoryFiller
+from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.datasets import load_mono_depth
 from .utils.eval_recon import eval_recon_with_cfg
 from .utils.eval_traj import full_traj_eval, kf_traj_eval
 from .utils.generate_mesh import generate_mesh_kf
@@ -61,13 +69,6 @@ def update_cam(cfg):
     return H_out, W_out, fx, fy, cx, cy
 
 
-def load_mono_depth(idx, cfg):
-    """A cached mono-depth prior, ``{data.output}/{scene}_priors/depths/
-    {idx:05d}.npy`` (reference datasets.py:10-15)."""
-    dir_path = f"{cfg['data']['output']}/{cfg['scene']}_priors/depths"
-    return np.load(f"{dir_path}/{int(idx):05d}.npy")
-
-
 class SLAM:
     def __init__(self, cfg, stream, device=None):
         """cfg: the config dict; stream: indexable frames ``(timestamp,
@@ -83,6 +84,7 @@ class SLAM:
 
         self.H, self.W, self.fx, self.fy, self.cx, self.cy = update_cam(cfg)
         self.printer = Printer(len(stream), cfg.get("silence", False))
+        self.logger = self._wandb_run(cfg)
         ckpt = cfg["tracking"].get("pretrained")
         if ckpt and os.path.exists(ckpt):
             self.tracker_net = TrackerNet.from_checkpoint(ckpt,
@@ -100,6 +102,9 @@ class SLAM:
         self.traj_filler = PoseTrajectoryFiller(self.tracker_net, self.video,
                                                 self.printer)
         self.timer = PhaseTimer()
+        # the CUDA kernels' launches since this SLAM was built go into
+        # logs/phase_times.json
+        self._launches = {k.name: k.launches for k in cuda_corr.KERNELS}
         mono_predictor = self._make_mono_predictor(cfg)
         self.mapper = self.async_mapper = on_kf = None
         if not cfg.get("only_tracking", False):
@@ -114,6 +119,27 @@ class SLAM:
             self.tracker_net, self.video, cfg, printer=self.printer,
             mono_predictor=mono_predictor, on_keyframe=on_kf,
             timer=self.timer)
+        if self.tracker.checkpoint_every:
+            self.tracker.checkpoint_cb = lambda nxt: self.save_state(
+                f"{self.output}/state.npz", nxt)
+
+    def _wandb_run(self, cfg):
+        """A wandb run with ``wandb: True`` (reference slam.py:28-37), or
+        None; without the ``wandb`` package, a message and None."""
+        if not cfg.get("wandb", False):
+            return None
+        try:
+            import wandb
+        except ImportError:
+            self.printer.print("wandb is not installed: the run is not "
+                               "logged to wandb", subsystem="info")
+            return None
+        return wandb.init(
+            resume="allow", config=cfg,
+            project=cfg.get("setting", "glorie_slam_tpu"),
+            group=cfg.get("dataset", ""), name=cfg.get("scene", ""),
+            dir=cfg.get("wandb_folder", "output/wandb"),
+            tags=[cfg.get("scene", "")])
 
     def _make_mono_predictor(self, cfg):
         """Mono-depth priors: the DPT online (``self.mono_estimator``, its
@@ -136,10 +162,30 @@ class SLAM:
 
         return load
 
-    def run(self):
-        """Track the stream, then terminate."""
-        self.tracker.run(self.stream)
+    def run(self, resume_from=None):
+        """Track the stream, then terminate. ``resume_from``: a checkpoint
+        (``save_state``'s, or the JAX package's) to restore first; tracking
+        continues from its next frame."""
+        start = 0
+        if resume_from:
+            with self.timer.phase("load_checkpoint"):
+                start = self.load_state(resume_from)
+            self.printer.print(f"resumed from {resume_from} at frame {start}",
+                               subsystem="tracker")
+        self.tracker.run(self.stream, start=start)
         self.terminate()
+
+    def save_state(self, path, next_frame):
+        """Write the live SLAM state to ``path`` (between frames;
+        ``next_frame`` is the first stream index a resume runs). The
+        asynchronous mapper finishes its queued jobs first."""
+        if self.async_mapper is not None:
+            self.async_mapper.quiesce()
+        save_checkpoint(path, self.tracker, next_frame, mapper=self.mapper)
+
+    def load_state(self, path):
+        """Restore a checkpoint; returns the stream index to resume from."""
+        return load_checkpoint(path, self.tracker, mapper=self.mapper)
 
     def final_ba(self):
         """Final global BA: 7 then 12 steps (reference slam.py:119-126)."""
@@ -181,8 +227,10 @@ class SLAM:
         np.save(f"{traj_dir}/full_traj_w2c.npy", np.asarray(est_w2c))
         if self.mapper is not None:
             self.evaluate()
+        launches = {k.name: k.launches - self._launches[k.name]
+                    for k in cuda_corr.KERNELS}
         timer.dump(f"{self.output}/logs/phase_times.json",
-                   printer=self.printer)
+                   printer=self.printer, kernel_launches=launches)
         self.printer.print("Metrics have been written to logs/",
                            subsystem="eval")
         self.printer.terminate()

@@ -36,6 +36,7 @@ class MotionFilter:
         self.thresh = thresh
         self.mono_predictor = mono_predictor
         self.predict_every = predict_every
+        self.count = 0          # frames since the last admission
         self.fmap = None
         self.net = None
         self.inp = None
@@ -94,8 +95,10 @@ class MotionFilter:
             self._admit(tstamp, image, intrinsics, gmap, mono, first=True)
             return True
         if float(delta_norm) > self.thresh:
+            self.count = 0
             self._admit(tstamp, image, intrinsics, gmap, mono)
             return True
+        self.count += 1
         return False
 
     def _admit(self, tstamp, image, intrinsics, gmap, mono, first=False):

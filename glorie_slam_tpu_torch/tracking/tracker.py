@@ -6,7 +6,9 @@ Counterpart of ``glorie_slam_tpu/tracking/tracker.py``: every
 ``mapper`` phase (the synchronous ``Mapper.on_keyframe`` or
 ``AsyncMapper.on_keyframe``), and the end of the stream sends a final
 ``{"end": True}``, in the same phase (the asynchronous mapper drains its
-queue there). Checkpoint hooks are not ported.
+queue there). With ``tracking.checkpoint_every`` N > 0, every N-th keyframe
+calls ``checkpoint_cb(next_frame)`` (``SLAM`` saves its state there), and
+``run(stream, start=)`` resumes from a checkpoint's next frame.
 """
 
 from ..utils.phase_timer import PhaseTimer
@@ -36,23 +38,39 @@ class Tracker:
         self.online_ba = Backend(tracker_net, video, cfg)
         self.enable_online_ba = tcfg["frontend"]["enable_online_ba"]
         self.ba_freq = tcfg["backend"]["ba_freq"]
+        # cadence counters, on the instance so that a checkpoint
+        # (``utils/checkpoint.py``) captures and restores them
         self.prev_kf_idx = 0
         self.prev_ba_idx = 0
         self.number_of_kf = 0
+        self.checkpoint_every = int(tcfg.get("checkpoint_every", 0) or 0)
+        self.checkpoint_cb = None
+        self._next = None       # (index, stream, frame) read by prefetch
+
+    def _frame(self, stream, i):
+        """(timestamp, image) of stream frame ``i``, read from the stream
+        once: the prefetch of frame i keeps it for the step that tracks
+        it."""
+        nxt = self._next
+        if nxt is not None and nxt[0] == i and nxt[1] is stream:
+            return nxt[2]
+        item = stream[i]
+        return item[0], item[1]
 
     def step(self, i, stream):
         """Track stream frame ``i``: motion filter, prefetch of frame
         i + 1, frontend, online BA every ``ba_freq`` keyframes, and the
         mapper handshake."""
         timer = self.timer
-        timestamp, image = stream[i][0], stream[i][1]
+        timestamp, image = self._frame(stream, i)
         with timer.phase("motion_filter"):
             self.motion_filter.track(timestamp, image,
                                      stream.get_intrinsic())
         if i + 1 < len(stream):
             with timer.phase("prefetch"):
-                self.motion_filter.prefetch(stream[i + 1][0],
-                                            stream[i + 1][1])
+                frame = self._frame(stream, i + 1)
+                self._next = (i + 1, stream, frame)
+                self.motion_filter.prefetch(*frame)
         with timer.phase("frontend"):
             self.frontend()
         curr_kf_idx = self.video.counter - 1
@@ -74,14 +92,19 @@ class Tracker:
                     self.on_keyframe({"is_keyframe": True,
                                       "video_idx": curr_kf_idx,
                                       "timestamp": timestamp, "end": False})
+            if (self.checkpoint_cb is not None and self.checkpoint_every
+                    and self.number_of_kf % self.checkpoint_every == 0):
+                with timer.phase("checkpoint"):
+                    self.checkpoint_cb(i + 1)
         self.prev_kf_idx = curr_kf_idx
         if self.printer is not None:
             self.printer.update_pbar()
 
-    def run(self, stream):
+    def run(self, stream, start=0):
         """Track every frame of ``stream`` (indexable, ``len``, yielding
-        (timestamp, image_hw3_01, ...), with ``get_intrinsic()``)."""
-        for i in range(len(stream)):
+        (timestamp, image_hw3_01, ...), with ``get_intrinsic()``) from
+        index ``start`` (a checkpoint's next frame) on."""
+        for i in range(start, len(stream)):
             self.step(i, stream)
         if self.on_keyframe is not None:
             with self.timer.phase("mapper"):

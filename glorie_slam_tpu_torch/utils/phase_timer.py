@@ -48,10 +48,11 @@ class PhaseTimer:
                        / max(self.count[name], 1)}
                 for name in sorted(self.total)}
 
-    def dump(self, path, printer=None):
+    def dump(self, path, printer=None, kernel_launches=None):
         """Write the JAX package's ``phase_times.json`` layout to ``path``
         (wall, tracked and untracked seconds, keyframes, the phases, and
-        keyframes/s over the tracking phases); print one line of it."""
+        keyframes/s over the tracking phases), with ``kernel_launches``
+        (name -> launches) where given; print one line of it."""
         wall = time.perf_counter() - self._start
         tracked = sum(self.total.values())
         s = {"wall_s": wall, "tracked_s": tracked,
@@ -60,6 +61,8 @@ class PhaseTimer:
         track_s = sum(self.total[p] for p in TRACK_PHASES)
         if self.n_keyframes and track_s > 0:
             s["keyframe_fps"] = self.n_keyframes / track_s
+        if kernel_launches is not None:
+            s["kernel_launches"] = kernel_launches
         with open(path, "w") as f:
             json.dump(s, f, indent=2)
         if printer is not None:

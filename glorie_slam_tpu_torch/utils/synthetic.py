@@ -5,14 +5,17 @@ The port's own copy of ``tests/synthetic.py`` (``make_texture``,
 package's torch ``lie`` (float32 on the CPU), and ``base_cfg`` as a plain
 dict. ``bench_cfg`` is the configuration of ``bench.py``: window 25,
 ba_freq 12, loop closure and online BA on, every frame admitted.
-``mapping_cfg`` is the mapper's configuration at the Replica widths
-(``configs/mono_point_slam.yaml`` under ``configs/Replica/replica.yaml``;
-the card's machine has no PyYAML).
+``write_7scenes`` writes a stream as a 7-Scenes folder (PNG frames through
+``cv2``, and pose files). ``mapping_cfg`` is the mapper's configuration at
+the Replica widths, read from ``configs/Replica/replica.yaml``.
 """
+
+import os
 
 import numpy as np
 import torch
 
+from ..config import DEFAULT_CONFIG_PATH, load_config
 from ..geom import lie
 
 PLANE_Z = 3.0
@@ -63,11 +66,14 @@ class SyntheticStream:
     """
 
     def __init__(self, n_frames=30, H=64, W=96, seed=0, motion_scale=0.02,
-                 trajectory="walk"):
+                 trajectory="walk", intrinsics=None):
+        """intrinsics: [fx, fy, cx, cy] (default fx = fy = 0.8 W, the
+        centre)."""
         rng = np.random.default_rng(seed)
         self.H, self.W = H, W
-        self.intrinsics = np.array([W * 0.8, W * 0.8, W / 2 - 0.5,
-                                    H / 2 - 0.5], np.float32)
+        self.intrinsics = np.array(
+            intrinsics if intrinsics is not None
+            else [W * 0.8, W * 0.8, W / 2 - 0.5, H / 2 - 0.5], np.float32)
         self.texture = make_texture(seed=seed)
         if trajectory == "circuit":
             t = np.linspace(0, 2 * np.pi, n_frames)
@@ -102,6 +108,22 @@ class SyntheticStream:
     def __getitem__(self, index):
         return index, self.frames[index], self.depths[index], \
             self.poses[index]
+
+
+def write_7scenes(folder, stream):
+    """Write ``stream`` in the 7-Scenes layout: ``frame-XXXXXX.color.png``
+    (8-bit RGB), ``.depth.png`` (16-bit, millimetres) and ``.pose.txt``
+    (the 4x4 camera-to-world matrix)."""
+    import cv2
+    os.makedirs(folder, exist_ok=True)
+    for i in range(len(stream)):
+        _, rgb, depth, c2w = stream[i]
+        base = os.path.join(folder, f"frame-{i:06d}")
+        bgr = np.clip(np.rint(rgb[..., ::-1] * 255.0), 0, 255)
+        cv2.imwrite(f"{base}.color.png", bgr.astype(np.uint8))
+        cv2.imwrite(f"{base}.depth.png", np.clip(
+            np.rint(depth * 1000.0), 0, 65535).astype(np.uint16))
+        np.savetxt(f"{base}.pose.txt", np.asarray(c2w, np.float64))
 
 
 def base_cfg(H=64, W=96, buffer=64, out="output"):
@@ -153,60 +175,14 @@ def bench_cfg(H=320, W=640, buffer=400, out="output"):
     return cfg
 
 
-def _stage_lrs():
-    """Learning rates of one stage table: geometry, then colour."""
-    def lrs(dec, geo, col):
-        return {"decoders_lr": dec, "geometry_lr": geo, "color_lr": col}
-    return {"geometry": lrs(0.001, 0.03, 0.0),
-            "color": lrs(0.005, 0.005, 0.005)}
-
-
 def mapping_cfg():
-    """The ``mapping``, ``pointcloud``, ``model`` and ``rendering`` sections
-    and ``setup_seed`` of ``configs/mono_point_slam.yaml`` with
-    ``configs/Replica/replica.yaml``'s overrides (window 12, 5000 pixels,
-    1000 colour-gradient pixels, 400 iterations), as a dict to merge into a
+    """The ``setup_seed``, ``mapping``, ``pointcloud``, ``model`` and
+    ``rendering`` sections of ``configs/Replica/replica.yaml`` over
+    ``configs/mono_point_slam.yaml`` (window 12, 5000 pixels, 1000
+    colour-gradient pixels, 400 iterations), as a dict to merge into a
     run's config."""
-    return {
-        "setup_seed": 43,
-        "mapping": {
-            "pretrained": "./pretrained/middle_fine.pt",
-            "async_mapping": True, "geo_iter_ratio": 0.3,
-            "geo_iter_first": 400, "every_keyframe": 1, "every_frame": 5,
-            "frustum_edge": -4, "fix_geo_decoder": True,
-            "fix_color_decoder": False, "mapping_window_size": 12,
-            "frustum_feature_selection": True,
-            "keyframe_selection_method": "overlap",
-            "keyframe_setting_method": "period", "pixels": 5000,
-            "pixels_adding": 6000, "pixels_based_on_color_grad": 1000,
-            "iters_first": 1500, "iters": 400, "save_rendered_image": True,
-            "min_iter_ratio": 0.95, "pix_warping": True,
-            "w_pix_warp_loss": 1000.0, "w_geo_loss": 1.0,
-            "w_color_loss": 0.1, "render_depth": "proxy",
-            "use_mono_to_complete": True, "save_depth": False,
-            "color_refine": True, "init": _stage_lrs(),
-            "stage": _stage_lrs(),
-        },
-        "pointcloud": {
-            "capacity": 1 << 20, "nn_num": 8, "min_nn_num": 2, "N_add": 3,
-            "nn_weighting": "distance", "radius_add": 0.04,
-            "radius_min": 0.02, "radius_query": 0.08,
-            "radius_add_max": 0.08, "radius_add_min": 0.02,
-            "radius_query_ratio": 2, "color_grad_threshold": 0.15,
-            "near_end_surface": 0.95, "far_end_surface": 1.05,
-            "nlist": 400, "nprobe": 4,
-            "fix_interval_when_add_along_ray": False,
-            "use_dynamic_radius": True, "bind_npc_with_pose": True,
-        },
-        "model": {
-            "c_dim": 32, "exposure_dim": 8,
-            "pos_embedding_method": "fourier",
-            "encode_rel_pos_in_col": True, "use_view_direction": True,
-            "encode_viewd": True,
-        },
-        "rendering": {
-            "N_surface": 10, "near_end": 0.3, "near_end_surface": 0.95,
-            "far_end_surface": 1.05, "sigmoid_coef": 0.1,
-            "sample_near_pcl": True,
-        },
-    }
+    cfg = load_config(os.path.join(os.path.dirname(DEFAULT_CONFIG_PATH),
+                                   "Replica", "replica.yaml"),
+                      DEFAULT_CONFIG_PATH)
+    return {k: cfg[k] for k in ("setup_seed", "mapping", "pointcloud",
+                                "model", "rendering")}

@@ -1,7 +1,7 @@
-"""The port runs where JAX, flax, PyYAML and the JAX package are absent
-(the card's machine has none of the first three, and the port must not
-lean on the fourth): every module of ``glorie_slam_tpu_torch`` and
-``chip_smoke`` import in a subprocess that blocks them."""
+"""The port never uses JAX, flax or the JAX package, and imports PyYAML,
+OpenCV, matplotlib, msgpack, PIL and wandb only inside the functions that
+need them: every module of ``glorie_slam_tpu_torch`` and ``chip_smoke``
+imports in a subprocess that blocks all of them."""
 
 import os
 import pkgutil
@@ -12,7 +12,8 @@ import sys
 import glorie_slam_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "glorie_slam_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "matplotlib", "msgpack",
+           "PIL", "wandb", "glorie_slam_tpu")
 
 _SCRIPT = r"""
 import importlib, pkgutil, sys
@@ -53,8 +54,12 @@ def test_port_imports_without_jax_flax_yaml_or_jax_package():
 
 
 def test_port_sources_name_no_jax_import():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|yaml|glorie_slam_tpu)\b",
-                     re.M)
+    """No port source imports JAX, flax or the JAX package anywhere, nor
+    the optional libraries (PyYAML, ``cv2``, ``msgpack``, ...) at module
+    level: those are imported inside the functions that use them."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|glorie_slam_tpu)\b"
+                     r"|^(import|from)\s+(yaml|cv2|matplotlib|msgpack|PIL|"
+                     r"wandb)\b", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, names in os.walk(os.path.dirname(
             glorie_slam_tpu_torch.__file__)):
@@ -87,3 +92,13 @@ def test_walk_covers_the_prior_and_evaluations():
     with open(path) as f:
         src = f.read()
     assert not re.search(r"^import cv2|^from cv2", src, re.M)
+
+
+def test_walk_covers_the_entry_point():
+    """The import check walks the entry point's modules too: the config
+    loader, the CLI, the dataset readers, checkpoints and the visualizer
+    (PyYAML, ``cv2`` and ``msgpack`` are imported where they are used)."""
+    names = set(_modules())
+    for mod in ("config", "cli", "utils.datasets", "utils.checkpoint",
+                "utils.visualizer"):
+        assert f"glorie_slam_tpu_torch.{mod}" in names, mod
