@@ -85,10 +85,11 @@ Phases, each printing its wall seconds:
 11. entry point (``entry_point_phase``): a 7-Scenes-layout scene written
     here (the synthetic circuit at 7-Scenes' 480x640 and camera, PNG
     colour, 16-bit depth, pose files) and a scene YAML inheriting from
-    ``configs/7scenes/7scenes.yaml`` (384x512 output, buffer 600, DBA, the
+    ``configs/7scenes/7scenes.yaml`` (384x512 output, buffer
+    ``ENTRY_BUFFER``, DBA, the
     online omnidata DPT at full width; every frame admitted and kept, a
     checkpoint every ``ENTRY_CHECKPOINT_EVERY`` keyframes); ``python -m
-    glorie_slam_tpu_torch.cli <yaml> --only_tracking --max_frames 30`` in
+    glorie_slam_tpu_torch.cli <yaml> --only_tracking --max_frames 20`` in
     a subprocess, its outputs checked (``cfg.yaml``, ``video.npz``,
     ``traj/``, ``logs/phase_times.json``, ``state.npz``); a second run with ``--resume`` from the mid-run
     checkpoint (keyframes, timestamps, the largest keyframe-pose
@@ -100,9 +101,30 @@ Phases, each printing its wall seconds:
     ``kernel_launches`` of their ``phase_times.json``: each subprocess
     starts at 0), and a
     Replica-layout JPEG frame, which raises the ImportError naming cv2
-    (or decodes where cv2 is installed).
+    (or decodes where cv2 is installed);
+12. endurance (``endurance_phase``): ``tools/long_run_synthetic.long_run``
+    tracking-only over ``ENDURANCE_FRAMES`` 240x320 frames (loop closure,
+    online BA every 20 keyframes, final BA), then with the asynchronous
+    mapper (map-light, every ``ENDURANCE_EVERY_KF``-th keyframe) over
+    ``ENDURANCE_MAPPED_FRAMES``, the launch counts zeroed before each run
+    and read after: the KF/s series per 20 frames with each phase's
+    seconds, peak memory, the A and B launches, the mapper's overlap stats
+    and each handshake's snapshot bytes and clone time (CUDA events on the
+    tracker's stream);
+13. mapper schedule (``mapper_schedule_phase``):
+    ``tools/mapper_schedule_run.schedule_run`` at Replica's 400 / 300 / 150
+    iterations on 10 oracle frames, with ``--light``'s 300 / 500 pixels and
+    8192 points (the JAX artifact's), held to ``convergence`` (the criteria
+    of ``tests/test_mapper_schedule.py``): ms per train iteration, the PSNR
+    of keyframe 4, the points, the first and last losses per keyframe;
+14. suite (``suite_phase``): ``python -m
+    glorie_slam_tpu_torch.tools.run_suite`` over a directory of two
+    7-Scenes-layout scenes, a ``demo_`` file, a base YAML and a scene whose
+    data is missing: exit 1, the two good rows in its JSON and table.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line (each
+kernel's ``launches`` on its main path, and ``launches_by_path``: the
+pipeline, volume and both endurance runs), and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero without that line. Needs no network; uses one card.
 """
@@ -123,13 +145,31 @@ FP32_FLOPS = 67e12               # H100 SXM float32 outside tensor cores
 # limit while window=25 loop closure and ba_freq=12 online BA both fire
 PIPELINE_FRAMES = 40
 # the mapping phase at the Replica widths: 16 frames (warmup 8, so 8-9
-# mapped keyframes) and the optimisation cut from 1500 / 400 / 400
-# iterations so that the phase takes minutes, not hours
+# mapped keyframes; at 12 frames too few had the mapper's 100 valid
+# depths) and the optimisation cut from 1500 / 400 / 400 iterations so that
+# the phase takes minutes, not hours
 MAPPING_FRAMES = 16
 MAPPING_CUTS = {"iters_first": 40, "geo_iter_first": 15, "iters": 10,
                 "pretrained": None}
 # the online-prior run: 20 frames, the DPT at every 5th and every admitted
 ONLINE_FRAMES = 20
+# the oracle evaluation: 5 frames, keyframes 0, 2 and 4 mapped
+ORACLE_FRAMES = 5
+ORACLE_KEYFRAMES = (0, 2, 4)
+# Depth cut so that the script, with the run tools' phases, stays inside
+# its time limit on the slowest hosts seen (a whole run took 986 s of
+# command time with the depths on the left; a host 1.4x slower was seen in
+# the same PR). The mapper schedule keeps its iteration counts and takes
+# the rays and points of ``--light``, as the JAX artifact
+# (``logs/mapper_sched_r03.json``) did. Printed at the start.
+SCRIPT_CUTS = {
+    "oracle evaluation frames (keyframes)": ("7 (0, 3, 6)", "5 (0, 2, 4)"),
+    "entry point frames (checkpoint every)": ("30 (10)", "20 (5)"),
+    "entry point buffer": (600, 300),
+    "endurance tracking-only frames": (420, 200),
+    "mapper schedule pixels / pixels_adding / points": (
+        "1000 / 1500 / 65536", "300 / 500 / 8192 (--light)"),
+}
 
 
 def phase(name, t0):
@@ -1062,25 +1102,6 @@ def pipeline(n_frames, H=320, W=640):
 # mapping: one train step card vs CPU, and the full-width mapping phase
 # ---------------------------------------------------------------------------
 
-def oracle_video(stream, cfg, n, device):
-    """A DepthVideo holding frames 0..n-1 of a synthetic stream at their
-    true poses and full-resolution depths, every pixel valid and every frame
-    marked for re-anchoring: the state a mapper reads, without a tracker."""
-    import numpy as np
-    import torch
-    from glorie_slam_tpu_torch.core.depth_video import DepthVideo
-
-    v = DepthVideo(cfg, device=device)
-    v.counter = n
-    v.timestamp[:n] = torch.arange(n, dtype=torch.float32)
-    v.poses[:n] = torch.as_tensor(np.array(stream.poses_w2c[:n]))
-    v.disps_up[:n] = torch.as_tensor(1.0 / np.stack(stream.depths[:n]))
-    v.intrinsics = torch.as_tensor(stream.intrinsics / 8.0, device=device)
-    v._valid_depth_mask[:n] = True
-    v.npc_dirty[:n] = True
-    return v
-
-
 def step_mapper(cfg, stream, video):
     """A ``Mapper`` over ``video`` with the SLAM attributes it reads."""
     import types
@@ -1105,8 +1126,8 @@ def mapping_step_state(H=120, W=160, n_frames=5):
     import torch
     from glorie_slam_tpu_torch.mapping import sampling
     from glorie_slam_tpu_torch.utils.buckets import bucket
-    from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
-                                                       base_cfg, mapping_cfg)
+    from glorie_slam_tpu_torch.utils.synthetic import (
+        SyntheticStream, base_cfg, mapping_cfg, oracle_video)
 
     stream = SyntheticStream(n_frames=n_frames, H=H, W=W, seed=5)
     cfg = base_cfg(H=H, W=W, buffer=16, out=tempfile.gettempdir())
@@ -1186,6 +1207,7 @@ def mapping_step_check(device="cuda"):
     both devices list them lowest index first."""
     import numpy as np
     import torch
+    from glorie_slam_tpu_torch.utils.synthetic import oracle_video
 
     cfg, stream, cpu_m, batch, c2ws, imgs, feat_mask = mapping_step_state()
     dev = torch.device(device)
@@ -1392,7 +1414,8 @@ def read_evaluation(out):
     return metrics, mesh
 
 
-def oracle_evaluation(n_frames=7, keyframes=(0, 3, 6), H=320, W=640,
+def oracle_evaluation(n_frames=ORACLE_FRAMES, keyframes=ORACLE_KEYFRAMES,
+                      H=320, W=640,
                       device="cuda"):
     """``SLAM.evaluate`` (the four evaluations, each in its phase) on a
     mapper over the true poses and depths of a 320x640 circuit stream
@@ -1411,8 +1434,8 @@ def oracle_evaluation(n_frames=7, keyframes=(0, 3, 6), H=320, W=640,
     from glorie_slam_tpu_torch.mapping.mapper import Mapper
     from glorie_slam_tpu_torch.utils.phase_timer import PhaseTimer
     from glorie_slam_tpu_torch.utils.printer import Printer
-    from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
-                                                       bench_cfg, mapping_cfg)
+    from glorie_slam_tpu_torch.utils.synthetic import (
+        SyntheticStream, bench_cfg, mapping_cfg, oracle_video)
 
     stream = SyntheticStream(n_frames=n_frames, H=H, W=W, seed=3,
                              motion_scale=0.02, trajectory="circuit")
@@ -1904,8 +1927,9 @@ def online_prior_run(n_frames=20, H=320, W=640, every_frame=5,
         peak_memory_bytes=peak)
 
 
-ENTRY_FRAMES = 30
-ENTRY_CHECKPOINT_EVERY = 10
+ENTRY_FRAMES = 20
+ENTRY_CHECKPOINT_EVERY = 5
+ENTRY_BUFFER = 300
 SEVEN_SCENES_K = (532.57, 531.54, 319.5, 239.5)   # configs/7scenes/7scenes.yaml
 # an 8x8 baseline JPEG (OpenCV, quality 50): the colour frame of the
 # Replica-layout probe
@@ -1928,6 +1952,7 @@ inherit_from: {root}/configs/7scenes/7scenes.yaml
 scene: synth
 setting: smoke
 tracking:
+  buffer: {buffer}
   checkpoint_every: {every}
   motion_filter:
     thresh: 0.0
@@ -1994,7 +2019,7 @@ def entry_point_phase(n_frames=ENTRY_FRAMES, every=ENTRY_CHECKPOINT_EVERY,
     circuit rendered at 7-Scenes' 480x640 and its camera, PNG colour and
     16-bit depth in millimetres, pose files) with a scene YAML that inherits
     from ``configs/7scenes/7scenes.yaml`` (384x512 after resize and crop,
-    buffer 600, DBA, the online omnidata DPT at full width with random
+    buffer ``ENTRY_BUFFER``, DBA, the online omnidata DPT at full width with random
     weights); cuts: every frame admitted and kept (random weights give no
     meaningful flow), a checkpoint every ``every`` keyframes. Then a second
     CLI run resumed from the mid-run checkpoint, held against the first;
@@ -2021,6 +2046,7 @@ def entry_point_phase(n_frames=ENTRY_FRAMES, every=ENTRY_CHECKPOINT_EVERY,
         scene = os.path.join(tmp, "synth.yaml")
         with open(scene, "w") as f:
             f.write(ENTRY_SCENE.format(root=ROOT, every=every,
+                                       buffer=ENTRY_BUFFER,
                                        data=os.path.join(tmp, "data"),
                                        out=os.path.join(tmp, "out"))
                     + scene_extra)
@@ -2127,6 +2153,271 @@ def entry_point_phase(n_frames=ENTRY_FRAMES, every=ENTRY_CHECKPOINT_EVERY,
         **jpeg)
 
 
+# ---------------------------------------------------------------------------
+# the run tools: endurance, mapper schedule, suite
+# ---------------------------------------------------------------------------
+
+# the endurance runs: tracking-only cut from the JAX script's 420 frames
+# (SCRIPT_CUTS; the tool runs all 420 on its own), the mapped run at the
+# same 200 frames
+ENDURANCE_FRAMES = 200
+ENDURANCE_MAPPED_FRAMES = 200
+ENDURANCE_EVERY_KF = 10
+SUITE_FRAMES = 10
+
+
+def _zero_launches():
+    from glorie_slam_tpu_torch.ops import cuda_corr
+    for k in cuda_corr.KERNELS:
+        k.launches = 0
+
+
+def _launches():
+    from glorie_slam_tpu_torch.ops import cuda_corr
+    return {k.name: k.launches for k in cuda_corr.KERNELS}
+
+
+def _allocated(device):
+    """Bytes the earlier phases still hold on the card: a tool's peak
+    (``max_memory_allocated``) counts them too."""
+    import torch
+    return torch.cuda.memory_allocated() if device == "cuda" else 0
+
+
+def endurance_phase(n_frames=ENDURANCE_FRAMES,
+                    mapped_frames=ENDURANCE_MAPPED_FRAMES,
+                    every_kf=ENDURANCE_EVERY_KF, H=240, W=320,
+                    device="cuda"):
+    """``tools/long_run_synthetic.long_run``: tracking-only over
+    ``n_frames`` frames, then with the asynchronous mapper (``--mapping
+    --map-light --every-kf``) over ``mapped_frames``, each with the launch
+    counts zeroed before and read after. Checks: every frame a keyframe,
+    finite poses, one series row per 20 frames, loop closure and online BA
+    ran, A and B launched; in the mapped run every handshake mapped and
+    snapshotted."""
+    import numpy as np
+    from glorie_slam_tpu_torch import build
+    from glorie_slam_tpu_torch.tools.long_run_synthetic import (WINDOW,
+                                                                long_run)
+
+    def checked(report, out):
+        synth = os.path.join(out, "test", "synth")
+        video = np.load(os.path.join(synth, "video.npz"))
+        with open(os.path.join(synth, "logs", "phase_times.json")) as f:
+            phases = json.load(f)["phases"]
+        n = report["n_keyframes"]
+        if n != report["n_frames"]:
+            raise AssertionError(f"{n} keyframes for {report['n_frames']} "
+                                 "frames")
+        if not np.isfinite(video["poses"]).all():
+            raise AssertionError("poses are not finite")
+        if len(report["kf_series"]) != report["n_frames"] // WINDOW:
+            raise AssertionError("the KF/s series misses windows")
+        if phases.get("online_ba", {}).get("calls", 0) <= 0:
+            raise AssertionError("online BA never ran")
+        return phases
+
+    os.makedirs(build.BUILD_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+        out = os.path.join(tmp, "tracking")
+        held = _allocated(device)
+        _zero_launches()
+        track = long_run(n_frames, out, H=H, W=W, device=device)
+        launches = _launches()
+        phases = checked(track, out)
+        track["bytes_held_before"] = held
+
+        out = os.path.join(tmp, "mapped")
+        held = _allocated(device)
+        _zero_launches()
+        mapped = long_run(mapped_frames, out, mapping=True, map_light=True,
+                          every_kf=every_kf, H=H, W=W, device=device)
+        mapped_launches = _launches()
+        mapped_phases = checked(mapped, out)
+        mapped["bytes_held_before"] = held
+    for name in ("lookup_pyramid", "depth_agree"):
+        if device == "cuda" and (launches[name] <= 0
+                                 or mapped_launches[name] <= 0):
+            raise AssertionError(f"kernel {name} never launched in the "
+                                 "endurance runs")
+    overlap, snap = mapped["mapper_overlap"], mapped["snapshot"]
+    handshakes = (mapped["n_keyframes"] - 8 + 1) // every_kf
+    if not (overlap["mapped_keyframes"] == snap["handshakes"] ==
+            handshakes > 0):
+        raise AssertionError(f"{overlap['mapped_keyframes']} jobs mapped, "
+                             f"{snap['handshakes']} snapshots, "
+                             f"{handshakes} handshakes expected")
+    return dict(size=[H, W], tracking=track, launches=launches,
+                phases={k: v["total_s"] for k, v in phases.items()},
+                mapped=mapped, mapped_launches=mapped_launches,
+                mapped_phases={k: v["total_s"]
+                               for k, v in mapped_phases.items()})
+
+
+def print_endurance(e):
+    t, m = e["tracking"], e["mapped"]
+    gpu = gpu_line()
+    print(f"[endurance] {gpu}: tracking-only {t['n_frames']} frames "
+          f"{e['size'][0]}x{e['size'][1]}, {t['n_keyframes']} keyframes in {t['wall_s']:.2f} s; "
+          f"keyframe_fps {t['keyframe_fps']:.4f}, tracking_only_kf_fps "
+          f"{t['tracking_only_kf_fps']:.4f}; peak {t['peak_device_bytes']} "
+          f"bytes, {t['bytes_held_before']} of them held by earlier phases; "
+          f"launches A {e['launches']['lookup_pyramid']} B "
+          f"{e['launches']['depth_agree']}", flush=True)
+    print("[endurance] KF/s series (frame, counter, KF/s, window s, "
+          "frontend s, online BA s): " + json.dumps([
+              (r["frame"], r["counter"], r["kf_per_s"], r["wall_s"],
+               r["phases_s"].get("frontend", 0.0),
+               r["phases_s"].get("online_ba", 0.0))
+              for r in t["kf_series"]]), flush=True)
+    print(f"[endurance] phases (s): {json.dumps(e['phases'])}", flush=True)
+    s = m["snapshot"]
+    print(f"[endurance] {gpu}: mapped (--map-light --every-kf "
+          f"{m['every_kf']}) {m['n_frames']} frames, {m['n_keyframes']} "
+          f"keyframes in {m['wall_s']:.2f} s, keyframe_fps "
+          f"{m['keyframe_fps']:.4f}; peak {m['peak_device_bytes']} bytes "
+          f"({m['bytes_held_before']} held by earlier phases); "
+          f"launches A {e['mapped_launches']['lookup_pyramid']} B "
+          f"{e['mapped_launches']['depth_agree']}; mapper_overlap "
+          f"{json.dumps(m['mapper_overlap'])}", flush=True)
+    print(f"[endurance] snapshot per handshake: {s['handshakes']} "
+          f"handshakes, bytes mean {s['bytes_mean']:.0f} max "
+          f"{s['bytes_max']}, {s['bytes_per_row']:.0f} bytes per row; clone "
+          f"ms ({s['clone_timer']}) mean {s['clone_ms_mean']:.4f} max "
+          f"{s['clone_ms_max']:.4f}; host ms mean {s['host_ms_mean']:.4f}; "
+          f"arithmetic at Replica 680x1200 and 300 keyframes: "
+          f"{s['replica_680x1200_300kf_bytes_arithmetic']:.0f} bytes",
+          flush=True)
+    print("[endurance] mapped KF/s series: " + json.dumps([
+        (r["frame"], r["counter"], r["kf_per_s"], r["wall_s"])
+        for r in m["kf_series"]]), flush=True)
+
+
+def mapper_schedule_phase(device="cuda"):
+    """``tools/mapper_schedule_run.schedule_run`` at the real iteration
+    schedule with ``--light``'s rays and points (``SCRIPT_CUTS``), held to
+    ``convergence`` (the JAX artifact's criteria); the PSNR must be finite
+    and the cloud non-empty."""
+    import numpy as np
+    from glorie_slam_tpu_torch import build
+    from glorie_slam_tpu_torch.tools.mapper_schedule_run import (
+        convergence, schedule_run)
+
+    os.makedirs(build.BUILD_ROOT, exist_ok=True)
+    held = _allocated(device)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+        report = schedule_run(tmp, light=True, device=device)
+    conv = convergence(report)
+    if conv["failures"]:
+        raise AssertionError(f"the mapper did not converge: {conv}")
+    if report["final_psnr_kf4"] is None or \
+            not np.isfinite(report["final_psnr_kf4"]) or \
+            report["n_points"] <= 0:
+        raise AssertionError("no render or no points after the schedule")
+    curves = {}
+    for h in report["loss_history"]:
+        key = f"{h['idx']}{' refine' if h['refine'] else ''}"
+        c = curves.setdefault(key, {})
+        loss = "geo" if h["stage"] == "geometry" else "color"
+        c.setdefault(h["stage"], [h[loss], h[loss]])[1] = h[loss]
+    return dict(report={k: v for k, v in report.items()
+                        if k != "loss_history"}, bytes_held_before=held,
+                convergence=conv, first_last_losses=curves)
+
+
+SUITE_BASE = """inherit_from: {root}/configs/7scenes/7scenes.yaml
+setting: suite
+tracking:
+  motion_filter:
+    thresh: 0.0
+  frontend:
+    keyframe_thresh: 0.0
+data:
+  output: {out}
+"""
+SUITE_SCENE = """inherit_from: {base}
+scene: {scene}
+data:
+  input_folder: {data}
+"""
+
+
+def suite_phase(n_frames=SUITE_FRAMES, H=480, W=640, device="cuda",
+                base_extra=""):
+    """``python -m glorie_slam_tpu_torch.tools.run_suite`` over a
+    configs-like directory written here: a base YAML inheriting
+    ``configs/7scenes/7scenes.yaml`` (every frame admitted and kept), two
+    scene YAMLs on 7-Scenes-layout scenes (``write_7scenes``), a ``demo_``
+    file and a scene whose data folder is missing. With ``--only_tracking
+    --max_frames`` it must exit with 1 and write the two good scenes' rows
+    (keyframes, ATEs, phase times) to its JSON and markdown table, and the
+    broken scene as a failure; the base and demo files are not run."""
+    from glorie_slam_tpu_torch import build
+    from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
+                                                       write_7scenes)
+
+    os.makedirs(build.BUILD_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+        suite = os.path.join(tmp, "7scenes_synth")
+        os.makedirs(suite)
+        base = os.path.join(suite, "base7.yaml")
+        with open(base, "w") as f:
+            f.write(SUITE_BASE.format(root=ROOT, out=os.path.join(tmp, "out"))
+                    + base_extra)
+        intr = [k * W / 640 for k in SEVEN_SCENES_K]
+        scenes = {"chess_synth": 4, "fire_synth": 5, "demo_skip": 4,
+                  "zz_broken": None}
+        for name, seed in scenes.items():
+            data = os.path.join(tmp, f"data_{seed}")
+            if seed is not None and not os.path.isdir(data):
+                write_7scenes(data, SyntheticStream(
+                    n_frames=n_frames, H=H, W=W, seed=seed,
+                    motion_scale=0.02, trajectory="circuit",
+                    intrinsics=intr))
+            with open(os.path.join(suite, f"{name}.yaml"), "w") as f:
+                f.write(SUITE_SCENE.format(base=base, scene=name, data=data))
+        out = os.path.join(tmp, "suite.json")
+        args = [sys.executable, "-m", "glorie_slam_tpu_torch.tools.run_suite",
+                suite, "--only_tracking", "--max_frames", str(n_frames),
+                "--out", out]
+        if device != "cuda":
+            args += ["--device", device]
+        t0 = time.perf_counter()
+        proc = subprocess.run(args, cwd=ROOT, env=dict(os.environ,
+                                                       PYTHONPATH=ROOT),
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 1:
+            raise AssertionError(f"the suite exited {proc.returncode}, not 1"
+                                 f":\n{proc.stdout[-3000:]}"
+                                 f"{proc.stderr[-3000:]}")
+        with open(out) as f:
+            agg = json.load(f)
+        with open(out[:-len(".json")] + ".md") as f:
+            table = f.read().splitlines()
+    rows = [r["scene"] for r in agg["results"]]
+    if rows != ["chess_synth", "fire_synth"]:
+        raise AssertionError(f"suite rows {rows}")
+    failed = [os.path.basename(f["config"]) for f in agg["failures"]]
+    if failed != ["zz_broken.yaml"]:
+        raise AssertionError(f"suite failures {failed}")
+    for r in agg["results"]:
+        if r["n_keyframes"] != n_frames or "ate_rmse_m" not in r["kf"] or \
+                "ate_rmse_m" not in r["full"] or \
+                "kernel_launches" not in r.get("phase_times", {}):
+            raise AssertionError(f"suite row {r['scene']} is incomplete")
+    if len(table) != 5 or not table[2].startswith("| chess_synth |"):
+        raise AssertionError(f"suite table: {table}")
+    return dict(wall_s=wall, exit_code=proc.returncode, scenes=rows,
+                failed=failed, table=table,
+                rows=[{k: r[k] for k in ("scene", "n_keyframes",
+                                         "keyframe_fps", "wall_s", "kf",
+                                         "full")}
+                      | {"launches": r["phase_times"]["kernel_launches"]}
+                      for r in agg["results"]],
+                error=agg["failures"][0]["error"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2141,6 +2432,9 @@ def main():
           f"python {sys.version.split()[0]}", flush=True)
     dev = torch.device("cuda")
 
+    print("[cuts] " + "; ".join(f"{k}: {a} -> {b}"
+                                 for k, (a, b) in SCRIPT_CUTS.items()),
+          flush=True)
     t0 = time.perf_counter()
     build_all()
     phase("build", t0)
@@ -2257,17 +2551,49 @@ def main():
           flush=True)
     phase("entry point", t0)
 
+    t0 = time.perf_counter()
+    endurance = endurance_phase()
+    print_endurance(endurance)
+    phase("endurance", t0)
+
+    t0 = time.perf_counter()
+    sched = mapper_schedule_phase()
+    r = sched["report"]
+    print(f"[mapper schedule] {gpu_line()}: " + json.dumps(r), flush=True)
+    print(f"[mapper schedule] {r['approx_train_iters']} train iterations "
+          f"at {r['ms_per_train_iter']:.2f} ms each (mapping "
+          f"{r['mapping_s']:.2f} s, final_refine {r['final_refine_s']:.2f} "
+          f"s); PSNR of keyframe 4 {r['final_psnr_kf4']:.3f} dB; peak "
+          f"{r['peak_device_bytes']} bytes ({sched['bytes_held_before']} "
+          f"held by earlier phases); "
+          f"{r['n_points']} points; convergence "
+          f"{json.dumps(sched['convergence'])}", flush=True)
+    print("[mapper schedule] first and last loss per keyframe and stage "
+          "(geo in the geometry stage, colour in the colour stage): "
+          + json.dumps(sched["first_last_losses"]), flush=True)
+    phase("mapper schedule", t0)
+
+    t0 = time.perf_counter()
+    suite = suite_phase()
+    print("[suite] " + json.dumps(suite), flush=True)
+    phase("suite", t0)
+
     # A and B launch on the tracking path (the pipeline); C, D and E on
-    # the volume path
+    # the volume path; each path's own counts beside them
     path_launches = {**pipe["launches"],
                      **{k: vol["launches"][k] for k in (
                          "lookup_level", "lookup_plane",
                          "lookup_plane_slots")}}
+    by_path = {"pipeline": pipe["launches"], "volume": vol["launches"],
+               "endurance": endurance["launches"],
+               "endurance_mapped": endurance["mapped_launches"]}
     kernels = []
     for r in results:
         kernels.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
             "replaces": r["replaces"], "launches": path_launches[r["name"]],
+            "launches_by_path": {p: v[r["name"]]
+                                 for p, v in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

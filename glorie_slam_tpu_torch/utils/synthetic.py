@@ -7,7 +7,10 @@ dict. ``bench_cfg`` is the configuration of ``bench.py``: window 25,
 ba_freq 12, loop closure and online BA on, every frame admitted.
 ``write_7scenes`` writes a stream as a 7-Scenes folder (PNG frames through
 ``cv2``, and pose files). ``mapping_cfg`` is the mapper's configuration at
-the Replica widths, read from ``configs/Replica/replica.yaml``.
+the Replica widths, read from ``configs/Replica/replica.yaml``;
+``small_mapping_cfg`` the small mapper of ``tests/synthetic.base_cfg``.
+``oracle_video`` holds a stream's true poses and depths, the state a
+mapper reads, without a tracker.
 """
 
 import os
@@ -173,6 +176,80 @@ def bench_cfg(H=320, W=640, buffer=400, out="output"):
         ba_freq=12, loop_window=25, loop_nms=12, BA_type="DSPO",
         normalize=True))
     return cfg
+
+
+def small_mapping_cfg():
+    """The ``setup_seed``, ``mapping``, ``rendering``, ``pointcloud``,
+    ``model`` and ``meshing`` sections of ``tests/synthetic.base_cfg``,
+    value for value (a small mapper: 96 pixels per step, 8192 points, 6 then
+    4 iterations per keyframe), as a dict to merge into ``base_cfg``."""
+    stage = {
+        "geometry": {"decoders_lr": 0.001, "geometry_lr": 0.03,
+                     "color_lr": 0.0},
+        "color": {"decoders_lr": 0.005, "geometry_lr": 0.005,
+                  "color_lr": 0.005},
+    }
+    return {
+        "setup_seed": 1,
+        "mapping": {
+            "every_keyframe": 1, "every_frame": 5, "pretrained": None,
+            "geo_iter_ratio": 0.4, "geo_iter_first": 3, "frustum_edge": -4,
+            "fix_geo_decoder": False, "fix_color_decoder": False,
+            "mapping_window_size": 3, "frustum_feature_selection": False,
+            "keyframe_selection_method": "overlap",
+            "keyframe_setting_method": "period",
+            "pixels": 96, "pixels_adding": 128,
+            "pixels_based_on_color_grad": 0,
+            "iters_first": 6, "iters": 4, "save_rendered_image": False,
+            "min_iter_ratio": 0.95, "pix_warping": True,
+            "w_pix_warp_loss": 1000.0, "w_geo_loss": 1.0,
+            "w_color_loss": 0.1, "render_depth": "proxy",
+            "use_mono_to_complete": True, "save_depth": False,
+            "init": {k: dict(v) for k, v in stage.items()},
+            "stage": {k: dict(v) for k, v in stage.items()},
+        },
+        "rendering": {
+            "N_surface": 5, "near_end": 0.3, "near_end_surface": 0.95,
+            "far_end_surface": 1.05, "sigmoid_coef": 0.1,
+            "sample_near_pcl": True,
+        },
+        "pointcloud": {
+            "nn_num": 8, "min_nn_num": 2, "N_add": 3,
+            "nn_weighting": "distance", "radius_add": 0.04,
+            "radius_min": 0.02, "radius_query": 0.08,
+            "radius_add_max": 0.08, "radius_add_min": 0.02,
+            "radius_query_ratio": 2, "color_grad_threshold": 0.15,
+            "near_end_surface": 0.95, "far_end_surface": 1.05,
+            "nlist": 400, "nprobe": 4,
+            "fix_interval_when_add_along_ray": False,
+            "use_dynamic_radius": True, "bind_npc_with_pose": True,
+            "capacity": 8192,
+        },
+        "model": {
+            "c_dim": 32, "exposure_dim": 8,
+            "pos_embedding_method": "fourier",
+            "encode_rel_pos_in_col": True, "use_view_direction": True,
+            "encode_viewd": True,
+        },
+        "meshing": {"gt_mesh_path": ""},
+    }
+
+
+def oracle_video(stream, cfg, n, device):
+    """A DepthVideo holding frames 0..n-1 of a synthetic stream at their
+    true poses and full-resolution depths, every pixel valid and every frame
+    marked for re-anchoring: the state a mapper reads, without a tracker."""
+    from ..core.depth_video import DepthVideo
+
+    v = DepthVideo(cfg, device=device)
+    v.counter = n
+    v.timestamp[:n] = torch.arange(n, dtype=torch.float32)
+    v.poses[:n] = torch.as_tensor(np.array(stream.poses_w2c[:n]))
+    v.disps_up[:n] = torch.as_tensor(1.0 / np.stack(stream.depths[:n]))
+    v.intrinsics = torch.as_tensor(stream.intrinsics / 8.0, device=device)
+    v._valid_depth_mask[:n] = True
+    v.npc_dirty[:n] = True
+    return v
 
 
 def mapping_cfg():

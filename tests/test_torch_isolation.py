@@ -102,3 +102,12 @@ def test_walk_covers_the_entry_point():
     for mod in ("config", "cli", "utils.datasets", "utils.checkpoint",
                 "utils.visualizer"):
         assert f"glorie_slam_tpu_torch.{mod}" in names, mod
+
+
+def test_walk_covers_the_tools():
+    """The import check walks the run tools too (the endurance run, the
+    mapper-schedule run and the suite runner)."""
+    names = set(_modules())
+    for mod in ("tools.long_run_synthetic", "tools.mapper_schedule_run",
+                "tools.run_suite"):
+        assert f"glorie_slam_tpu_torch.{mod}" in names, mod

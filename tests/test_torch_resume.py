@@ -9,8 +9,9 @@ JAX package's loader.
   resumed from either save ends with every video and factor-graph array
   equal to the uninterrupted run's, bit for bit, the same tracker counters
   and mapper handshakes, and the same ``video.npz``.
-* The same with the mapper on (synchronous): the point cloud, decoder
-  weights, loss history, keyframe list and sampling generator equal too.
+* The same with the mapper on, synchronous and on its worker thread (the
+  default): the point cloud, decoder weights, loss history, keyframe list
+  and sampling generator equal too, and the handshakes after the save.
   Exactness needs one intra-op torch thread (``torch_parity`` sets it): the
   CPU backward of the feature gradients sums in thread order otherwise.
 * A loaded state saved again is the same file, array for array (bf16 as
@@ -25,6 +26,7 @@ JAX package's loader.
 
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -56,14 +58,15 @@ def _tracking_slam(out, stream, every=2):
     return slam
 
 
-def _mapping_slam(out, stream):
+def _mapping_slam(out, stream, async_mapping=False):
+    """A mapped run; its handshakes go to ``slam.handshakes``."""
     cfg = base_cfg(H=H, W=W, buffer=24, out=out)
     cfg.update(mapping_cfg())
     cfg["only_tracking"] = False
     cfg["tracking"]["warmup"] = 4
     cfg["tracking"]["checkpoint_every"] = 2
     cfg["mapping"].update(
-        async_mapping=False, pretrained=None, iters_first=4,
+        async_mapping=async_mapping, pretrained=None, iters_first=4,
         geo_iter_first=2, iters=2, pixels=128, pixels_adding=192,
         pixels_based_on_color_grad=32, mapping_window_size=4)
     cfg["pointcloud"]["capacity"] = 8192
@@ -73,7 +76,15 @@ def _mapping_slam(out, stream):
     os.makedirs(priors, exist_ok=True)
     for i, d in enumerate(stream.depths):
         np.save(os.path.join(priors, f"{i:05d}.npy"), d)
-    return SLAM(cfg, stream, device="cpu")
+    slam = SLAM(cfg, stream, device="cpu")
+    slam.handshakes, hand = [], slam.tracker.on_keyframe
+
+    def record(info):
+        slam.handshakes.append(dict(info))
+        hand(info)
+
+    slam.tracker.on_keyframe = record
+    return slam
 
 
 def _keep_saves(slam, out):
@@ -101,15 +112,24 @@ def tracked(tmp_path_factory):
     return stream, slam, saved
 
 
-@pytest.fixture(scope="module")
-def mapped(tmp_path_factory):
+def _mapped_run(tmp_path_factory, async_mapping):
     out = str(tmp_path_factory.mktemp("mapped"))
     stream = SyntheticStream(n_frames=9, H=H, W=W, seed=3,
                              trajectory="circuit")
-    slam = _mapping_slam(os.path.join(out, "a"), stream)
+    slam = _mapping_slam(os.path.join(out, "a"), stream, async_mapping)
     saved = _keep_saves(slam, out)
     slam.tracker.run(stream)          # the evaluations are not under test
     return stream, slam, saved
+
+
+@pytest.fixture(scope="module")
+def mapped(tmp_path_factory):
+    return _mapped_run(tmp_path_factory, async_mapping=False)
+
+
+@pytest.fixture(scope="module")
+def mapped_async(tmp_path_factory):
+    return _mapped_run(tmp_path_factory, async_mapping=True)
 
 
 def _assert_tracking_equal(a, b):
@@ -177,6 +197,45 @@ def test_mapper_resume_equals_uninterrupted(mapped, tmp_path):
         assert torch.equal(x, y), k
     assert ma.loss_history == mb.loss_history
     assert ma.keyframe_list == mb.keyframe_list
+    assert ma.rng.bit_generator.state == mb.rng.bit_generator.state
+    assert torch.equal(ma.npc.generator.get_state(),
+                       mb.npc.generator.get_state())
+
+
+def test_async_mapper_resume_equals_uninterrupted(mapped_async, tmp_path):
+    """Resume with the mapper on its worker thread (the default): the save
+    quiesces the worker, and the resumed run queues the same jobs. A job
+    reads its snapshot and the ``npc_dirty`` flags, which stay shared with
+    the tracker, so the point cloud could depend on when the worker reads
+    them; it does not here. Everything the synchronous test holds is equal,
+    bit for bit, the point count included, with the resumed run switching
+    threads every 10 us (the interpreter's default is 5 ms)."""
+    stream, a, saved = mapped_async
+    assert a.async_mapper is not None and a.async_mapper.stats["mapped"] > 0
+    _, nxt, path = saved[0]
+    b = _mapping_slam(str(tmp_path), stream, async_mapping=True)
+    b.tracker.checkpoint_cb = None
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        b.tracker.run(stream, start=b.load_state(path))
+    finally:
+        sys.setswitchinterval(switch)
+    assert not b.async_mapper._thread.is_alive()
+    _assert_tracking_equal(a, b)
+    assert b.handshakes == [h for h in a.handshakes
+                            if h["end"] or h["timestamp"] >= nxt]
+    assert b.async_mapper.stats["mapped"] == sum(
+        not h["end"] for h in b.handshakes)
+    ma, mb = a.mapper, b.mapper
+    assert ma.keyframe_list == mb.keyframe_list
+    assert (ma.npc.count, ma.npc.count_in) == (mb.npc.count, mb.npc.count_in)
+    for n in checkpoint._NPC_ARRAYS:
+        assert torch.equal(getattr(ma.npc, n), getattr(mb.npc, n)), n
+    for (k, x), y in zip(ma.decoders.state_dict().items(),
+                         mb.decoders.state_dict().values()):
+        assert torch.equal(x, y), k
+    assert ma.loss_history == mb.loss_history
     assert ma.rng.bit_generator.state == mb.rng.bit_generator.state
     assert torch.equal(ma.npc.generator.get_state(),
                        mb.npc.generator.get_state())

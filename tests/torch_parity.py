@@ -39,11 +39,11 @@ def oracle_videos(stream, cfg, n):
     synthetic stream at their true poses and full-resolution depths, every
     pixel valid and every frame marked for re-anchoring: the state the
     mapper reads, without a tracker. The port's is
-    ``chip_smoke.oracle_video``'s."""
+    ``utils/synthetic.oracle_video``'s."""
     import jax.numpy as jnp
 
-    import chip_smoke
     from glorie_slam_tpu.core.depth_video import DepthVideo as JVideo
+    from glorie_slam_tpu_torch.utils.synthetic import oracle_video
 
     jv = JVideo(cfg)
     zeros = jnp.zeros((jv.h8, jv.w8, 128))
@@ -57,7 +57,7 @@ def oracle_videos(stream, cfg, n):
     jv.valid_depth_mask = jv.valid_depth_mask.at[:n].set(True)
     jv.dirty[:n] = False
     jv.npc_dirty[:n] = True
-    return jv, chip_smoke.oracle_video(stream, cfg, n, "cpu")
+    return jv, oracle_video(stream, cfg, n, "cpu")
 
 
 def jax_feature_draws(seed, c_dim):
