@@ -120,11 +120,28 @@ Phases, each printing its wall seconds:
 14. suite (``suite_phase``): ``python -m
     glorie_slam_tpu_torch.tools.run_suite`` over a directory of two
     7-Scenes-layout scenes, a ``demo_`` file, a base YAML and a scene whose
-    data is missing: exit 1, the two good rows in its JSON and table.
+    data is missing: exit 1, the two good rows in its JSON and table;
+15. sharded (``sharded_phase``): the edge-sharded path (``parallel/``):
+    12 DSPO rounds of ``graph_update_rounds`` at 320x640 over 96 active
+    edges, then ``Backend.dense_ba(steps=2)`` over 24 keyframes, and a
+    whole tracking-only ``SLAM.run`` through the entry point with the
+    pipeline phase's config and stream (``SHARD_SLAM_FRAMES`` frames: loop
+    closure, online BA and the final BA), on 1 rank and on 2 gloo ranks
+    that share the card (4 NCCL ranks too where the machine has 4 cards),
+    each rank a process started by ``parallel.launch`` running
+    ``tests/torch_drills.card_drill``. Every rank ends bitwise equal to
+    the others, and the n-rank results stay within ``SHARD_TOL`` of one
+    rank's (the whole run: the same keyframes and frontend edges). The
+    comparisons run under deterministic algorithms: on the card
+    ``index_add_`` otherwise sums in atomic order. With the batch-invariant
+    net and in ``dense_ba`` they are bitwise. Per rank: the seconds, the A
+    and B launches (zeroed in each rank before each run) and the bytes
+    received.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (each
 kernel's ``launches`` on its main path, and ``launches_by_path``: the
-pipeline, volume and both endurance runs), and
+pipeline, volume, both endurance runs and the 2-rank sharded runs (the
+rounds, ``dense_ba`` and the whole run), summed over their ranks), and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero without that line. Needs no network; uses one card.
 """
@@ -165,8 +182,9 @@ ORACLE_KEYFRAMES = (0, 2, 4)
 SCRIPT_CUTS = {
     "oracle evaluation frames (keyframes)": ("7 (0, 3, 6)", "5 (0, 2, 4)"),
     "entry point frames (checkpoint every)": ("30 (10)", "20 (5)"),
-    "entry point buffer": (600, 300),
-    "endurance tracking-only frames": (420, 200),
+    "entry point buffer": (600, 100),
+    "endurance tracking-only frames": (420, 60),
+    "endurance mapped frames": (200, 60),
     "mapper schedule pixels / pixels_adding / points": (
         "1000 / 1500 / 65536", "300 / 500 / 8192 (--light)"),
 }
@@ -1846,8 +1864,8 @@ def online_prior_run(n_frames=20, H=320, W=640, every_frame=5,
         from glorie_slam_tpu_torch.mapping import mono_prior
         inner = mono_prior.DPTDepthModel
         mono_prior.DPTDepthModel = functools.partial(inner, **dpt_kw)
-    slam_mod.MonoDepthEstimator = lambda cfg, device=None: make(
-        cfg, infer_size, device=device)
+    slam_mod.MonoDepthEstimator = lambda cfg, **kw: make(cfg, infer_size,
+                                                         **kw)
     try:
         with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
             cfg = bench_cfg(H=H, W=W, buffer=400, out=tmp)
@@ -1929,7 +1947,7 @@ def online_prior_run(n_frames=20, H=320, W=640, every_frame=5,
 
 ENTRY_FRAMES = 20
 ENTRY_CHECKPOINT_EVERY = 5
-ENTRY_BUFFER = 300
+ENTRY_BUFFER = 100
 SEVEN_SCENES_K = (532.57, 531.54, 319.5, 239.5)   # configs/7scenes/7scenes.yaml
 # an 8x8 baseline JPEG (OpenCV, quality 50): the colour frame of the
 # Replica-layout probe
@@ -2159,9 +2177,9 @@ def entry_point_phase(n_frames=ENTRY_FRAMES, every=ENTRY_CHECKPOINT_EVERY,
 
 # the endurance runs: tracking-only cut from the JAX script's 420 frames
 # (SCRIPT_CUTS; the tool runs all 420 on its own), the mapped run at the
-# same 200 frames
-ENDURANCE_FRAMES = 200
-ENDURANCE_MAPPED_FRAMES = 200
+# same 120 frames (cut from 200 to make room for the sharded phase)
+ENDURANCE_FRAMES = 60
+ENDURANCE_MAPPED_FRAMES = 60
 ENDURANCE_EVERY_KF = 10
 SUITE_FRAMES = 10
 
@@ -2418,6 +2436,270 @@ def suite_phase(n_frames=SUITE_FRAMES, H=480, W=640, device="cuda",
                 error=agg["failures"][0]["error"])
 
 
+# the sharded phase: the frontend's shape at full width (320x640, 40x80 at
+# 1/8, 96 active edges from 19 keyframes within 3 frames of each other, 6
+# more in the inactive block, the random-weight bf16 net) and dense_ba
+# over 24 keyframes of a circuit
+SHARD_KEYS = ("poses", "disps", "disps_up", "scale", "shift", "vmask",
+              "damping")
+_ROUNDS = {"state": {"H": 320, "W": 640, "n": 19, "r": 3, "n_inactive": 6,
+                     "buffer": 32, "device": "cuda"},
+           "rounds": 12, "alternate": True, "keys": SHARD_KEYS}
+
+
+def _rounds(rounds=12, alternate=True, dtype=None, batch_invariant=False):
+    spec = json.loads(json.dumps(_ROUNDS))
+    spec.update(rounds=rounds, alternate=alternate)
+    spec["state"].update(dtype=dtype, batch_invariant=batch_invariant)
+    return spec
+
+
+# the whole run: SLAM.run tracking-only with the pipeline phase's config
+# and stream (bench.py's tracking config, the final BA, cached true-depth
+# priors), 28 frames so that the online BA (every 12 keyframes) and loop
+# closure (past the 25-frame window) fire. With the batch-invariant net:
+# with the default one, 2 ranks took other frontend edges than one rank
+# over 40 frames (poses 0.106 apart; the rounds' bf16 differences, see
+# SHARD_TOL, grow over a whole run of random weights), while its ranks
+# stayed bitwise equal to each other
+SHARD_SLAM_FRAMES = 28
+_SLAM = {"n_frames": SHARD_SLAM_FRAMES, "H": 320, "W": 640,
+         "config": "bench", "device": "cuda", "batch_invariant": True,
+         "stream": {"seed": 3, "motion_scale": 0.02,
+                    "trajectory": "circuit"}}
+SHARDED = {
+    "timed": {
+        "rounds": ("rounds", _rounds()),
+        "dense_ba": ("dense_ba", {"state": {"H": 320, "W": 640, "n": 24,
+                                            "buffer": 32, "device": "cuda"},
+                                  "steps": 2})},
+    "checks": {
+        "rounds_2": ("rounds", _rounds(rounds=2)),
+        "pose_depth": ("rounds", _rounds(alternate=False)),
+        "rounds_f32": ("rounds", _rounds(dtype="float32")),
+        "rounds_nchw": ("rounds", _rounds(batch_invariant=True)),
+        "slam": ("slam", _SLAM)},
+}
+# Held against one rank. The bounds are those of tests/test_torch_parallel.py
+# (the JAX mesh test's), and "bitwise" keys must be equal. The batch-invariant
+# net's 12 DSPO rounds and dense_ba must be bitwise: the sharding itself is
+# exact. The default net's rounds: 2 rounds (one pose_depth, one
+# depth_scale), 12 pose_depth rounds and 12 DSPO rounds at the test's bounds.
+# The whole run (batch-invariant net): the keyframes (count and timestamps)
+# and the frontend's edges at the end of tracking equal to one rank's; its
+# poses and disparities are printed.
+# On 4 NCCL ranks (a card each) the 12 DSPO rounds' disparities are held to
+# the difference that the same 12 rounds show on one rank between the bf16
+# and the float32 net (``DTYPE_FLOOR``): cuDNN's channels-last bf16 kernels
+# round an edge's result differently with the batch's edge count, and the
+# DSPO alternation (the scale fit, the validity refresh) carries that
+# rounding on, to 1.30e-2 at 4 ranks; sharding may not move them more than
+# the net's precision does. Printed, not held: the float32 net's rounds.
+_DSPO = {"poses": 5e-4, "damping": 1e-4, "disps": 1e-2, "scale": 1e-1,
+         "shift": 5e-2, "flips": 0.02}
+_EXACT = {"bitwise": ("poses", "disps", "disps_up", "scale", "shift",
+                      "vmask", "damping")}
+DTYPE_FLOOR = "dtype_floor"
+SHARD_TOL = {
+    "rounds": _DSPO, "rounds_2": _DSPO,
+    "pose_depth": {"poses": 5e-4, "damping": 1e-4, "disps": 5e-3,
+                   "disps_up": 5e-3, "bitwise": ("scale", "vmask")},
+    "rounds_nchw": _EXACT,
+    "dense_ba": {"bitwise": ("poses", "disps", "disps_up")},
+    "slam": {"bitwise": ("n_keyframes", "timestamps", "ii", "jj")},
+}
+SHARD_TOL_NCCL = {"rounds": dict(_DSPO, disps=DTYPE_FLOOR)}
+SHARD_REPORTED = {"rounds_f32": _DSPO,
+                  "slam": {"poses": 1.0, "disps": 1.0, "final_poses": 1.0,
+                           "final_disps": 1.0}}
+
+
+def _held(name, det, ref, tol, fail, n, floor=None):
+    """Max differences of n ranks' result from one rank's, and the checks
+    that fail; ``floor``: the bounds that ``DTYPE_FLOOR`` stands for."""
+    import numpy as np
+
+    out = {}
+    for k, t in tol.items():
+        if t == DTYPE_FLOOR:
+            t = floor[k]
+        if k == "flips":
+            out["vmask_flip_share"] = float(np.mean(det["vmask"]
+                                                    != ref["vmask"]))
+            ok = out["vmask_flip_share"] < t
+        elif k == "bitwise":
+            differ = [b for b in t if not np.array_equal(det[b], ref[b])]
+            out["not_bitwise"] = differ
+            if fail is not None and differ:
+                fail(f"{n} ranks against 1: {name} not bitwise in {differ}")
+            continue
+        elif np.shape(det[k]) != np.shape(ref[k]):
+            out[k], ok = f"shape {np.shape(det[k])} != {np.shape(ref[k])}", False
+        else:
+            out[k] = float(np.abs(det[k].astype(np.float64) - ref[k]).max())
+            ok = out[k] <= t
+        if fail is not None and not ok:
+            fail(f"{n} ranks against 1: {name} {k} {out.get(k)} > {t}")
+    return out
+
+
+def sharded_phase(spec=SHARDED, device="cuda", timeout=600):
+    """The edge-sharded path (``parallel/``): ``drills.card_drill`` (12 DSPO
+    rounds of ``graph_update_rounds``, then ``Backend.dense_ba(steps=2)``,
+    each cold, warm and deterministic; and the deterministic checks) on 1
+    rank and on 2 gloo ranks that share the card, and on 4 NCCL ranks with
+    a card each where the machine has 4. Checks: every rank of a run ends
+    bitwise equal; n ranks within ``SHARD_TOL`` of one rank; kernels A and
+    B launched on every rank. Returns the seconds, per-rank launches and
+    bytes received per round, the differences (held and reported), and
+    the checks that failed (``failures``: ``main`` prints the report, then
+    raises)."""
+    import numpy as np
+    import torch
+    from glorie_slam_tpu_torch import build
+    from glorie_slam_tpu_torch.parallel import launch
+
+    # the seeded problems are the tests' (tests/torch_drills.py); the ranks
+    # import them by name, with this path
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_drills import card_drill
+
+    kw = (dict(device="cpu", threads=1) if device == "cpu"
+          else dict(shared_device=True))
+    os.makedirs(build.BUILD_ROOT, exist_ok=True)
+    runs, backend = {}, {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+        spec = json.loads(json.dumps(spec))
+        for name, (kind, sub) in spec["checks"].items():
+            if kind == "slam":
+                sub["out"] = os.path.join(tmp, name)
+        for n in (1, 2):
+            runs[n] = launch.launch(card_drill, n, args=(spec,),
+                                    timeout=timeout, **kw)
+            backend[n] = "gloo"
+        if device != "cpu" and torch.cuda.device_count() >= 4:
+            runs[4] = launch.launch(card_drill, 4, args=(spec,),
+                                    timeout=timeout)
+            backend[4] = "nccl"
+    ref = runs[1][0]
+    floor = _held("rounds", ref["rounds"]["det"], ref["rounds_f32"]["det"],
+                  _DSPO, None, 1)
+    report = {"shape": {k: v for k, v in spec["timed"].items()},
+              "checks": {k: v for k, v in spec["checks"].items()},
+              "rounds_bf16_vs_f32_one_rank": floor, "runs": {},
+              "failures": []}
+    fail = report["failures"].append
+    for n, outs in runs.items():
+        entry = {"backend": backend[n], "shared_card": n > 1 and
+                 backend[n] == "gloo" and device != "cpu", "diffs": {}}
+        for name in ref:
+            det = [o[name]["det"] for o in outs]
+            for r, d in enumerate(det[1:], 1):
+                for k, v in d.items():
+                    if (isinstance(v, np.ndarray)
+                            and not np.array_equal(det[0][k], v)):
+                        fail(f"{n} ranks: rank {r} differs from rank 0 in "
+                             f"{name} {k}")
+            tol = (SHARD_TOL_NCCL if backend[n] == "nccl"
+                   else {}).get(name, SHARD_TOL.get(name))
+            diffs = {}
+            if tol is not None:
+                diffs.update(_held(name, det[0], ref[name]["det"], tol,
+                                   fail, n, floor))
+            if name in SHARD_REPORTED:
+                diffs.update(_held(name, det[0], ref[name]["det"],
+                                   SHARD_REPORTED[name], None, n))
+            entry["diffs"][name] = diffs
+        for name, (kind, sub) in spec["timed"].items():
+            warm = [o[name]["warm"] for o in outs]
+            launches = [{k: w["launches"][k] for k in (
+                "lookup_pyramid", "depth_agree")} for w in warm]
+            if device != "cpu" and kind == "rounds" and any(
+                    ln["lookup_pyramid"] <= 0 or ln["depth_agree"] <= 0
+                    for ln in launches):
+                fail(f"{n} ranks: kernel A or B did not launch on every "
+                     f"rank: {launches}")
+            entry[name] = {
+                "seconds": max(w["seconds"] for w in warm),
+                "seconds_by_rank": [w["seconds"] for w in warm],
+                "cold_seconds": max(o[name]["cold_s"] for o in outs),
+                "det_seconds": max(o[name]["det"]["seconds"] for o in outs),
+                "launches_by_rank": launches,
+                "bytes_received_by_rank": [w["bytes_received"]
+                                           for w in warm],
+                "bytes_received_per_round": sum(
+                    w["bytes_received"] for w in warm) / sub.get("rounds",
+                                                                  1),
+                "collectives_by_rank": [w["collectives"] for w in warm],
+                "edges": warm[0].get("edges", warm[0].get("n_edges"))}
+        for name, (kind, sub) in spec["checks"].items():
+            if kind != "slam":
+                continue
+            det = [o[name]["det"] for o in outs]
+            launches = [{k: d["launches"][k] for k in (
+                "lookup_pyramid", "depth_agree")} for d in det]
+            if device != "cpu" and any(
+                    ln["lookup_pyramid"] <= 0 or ln["depth_agree"] <= 0
+                    for ln in launches):
+                fail(f"{n} ranks: kernel A or B did not launch on every "
+                     f"rank of the whole run: {launches}")
+            if det[0]["loop_closure_at"] <= 0 or det[0]["online_ba_at"] <= 0:
+                fail(f"{n} ranks: loop closure or online BA did not run in "
+                     "the whole run")
+            entry[name] = {
+                "seconds": max(d["seconds"] for d in det),
+                "keyframes": int(det[0]["n_keyframes"]),
+                "edges": int(len(det[0]["ii"])),
+                "loop_closure_at": det[0]["loop_closure_at"],
+                "online_ba_at": det[0]["online_ba_at"],
+                "launches_by_rank": launches,
+                "bytes_received_by_rank": [d["bytes_received"] for d in det],
+                "collectives_by_rank": [d["collectives"] for d in det]}
+        report["runs"][n] = entry
+    paths = list(spec["timed"]) + [name for name, (kind, _) in
+                                   spec["checks"].items() if kind == "slam"]
+    report["launches"] = {
+        k: sum(ln[k] for name in paths
+               for ln in report["runs"][2][name]["launches_by_rank"])
+        for k in ("lookup_pyramid", "depth_agree")}
+    return report
+
+
+def print_sharded(rep):
+    gpu = gpu_line()
+    st = rep["shape"]["rounds"][1]["state"]
+    hw = f"{st['H']}x{st['W']}"
+    for n, e in rep["runs"].items():
+        r, d = e["rounds"], e["dense_ba"]
+        print(f"[sharded] {gpu}: {n} rank(s), {e['backend']}"
+              f"{' sharing the card' if e['shared_card'] else ''}: 12 DSPO "
+              f"rounds over {r['edges']} active edges at {hw} "
+              f"{r['seconds']:.4f} s (per rank {r['seconds_by_rank']}, cold "
+              f"{r['cold_seconds']:.3f} s, deterministic "
+              f"{r['det_seconds']:.3f} s), received "
+              f"{r['bytes_received_per_round']:.0f} bytes per round over "
+              f"all ranks; dense_ba(2) over {d['edges']} edges "
+              f"{d['seconds']:.4f} s (deterministic {d['det_seconds']:.3f} "
+              f"s), received {d['bytes_received_by_rank']} bytes; launches "
+              f"A/B per rank: rounds {r['launches_by_rank']}, dense_ba "
+              f"{d['launches_by_rank']}; against 1 rank: "
+              f"{json.dumps(e['diffs'])}", flush=True)
+    for n, e in rep["runs"].items():
+        w = e["slam"]
+        print(f"[sharded] {gpu}: {n} rank(s), {e['backend']}: SLAM.run "
+              f"tracking-only, {rep['checks']['slam'][1]['n_frames']} frames "
+              f"at {hw} "
+              f"(deterministic): {w['seconds']:.2f} s, {w['keyframes']} "
+              f"keyframes, {w['edges']} frontend edges, loop closure at "
+              f"{w['loop_closure_at']}, online BA at {w['online_ba_at']}; "
+              f"launches A/B per rank {w['launches_by_rank']}; received "
+              f"{w['bytes_received_by_rank']} bytes; against 1 rank: "
+              f"{json.dumps(e['diffs']['slam'])}", flush=True)
+    print("[sharded] one rank, 12 DSPO rounds, bf16 net against float32 net: "
+          + json.dumps(rep["rounds_bf16_vs_f32_one_rank"]), flush=True)
+    print("[sharded] " + json.dumps(rep), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2578,6 +2860,14 @@ def main():
     print("[suite] " + json.dumps(suite), flush=True)
     phase("suite", t0)
 
+    t0 = time.perf_counter()
+    sharded = sharded_phase()
+    print_sharded(sharded)
+    if sharded["failures"]:
+        raise AssertionError("sharded phase: "
+                             + "; ".join(sharded["failures"]))
+    phase("sharded", t0)
+
     # A and B launch on the tracking path (the pipeline); C, D and E on
     # the volume path; each path's own counts beside them
     path_launches = {**pipe["launches"],
@@ -2586,7 +2876,9 @@ def main():
                          "lookup_plane_slots")}}
     by_path = {"pipeline": pipe["launches"], "volume": vol["launches"],
                "endurance": endurance["launches"],
-               "endurance_mapped": endurance["mapped_launches"]}
+               "endurance_mapped": endurance["mapped_launches"],
+               "sharded": {k.name: sharded["launches"].get(k.name, 0)
+                           for k in cuda_corr.KERNELS}}
     kernels = []
     for r in results:
         kernels.append({

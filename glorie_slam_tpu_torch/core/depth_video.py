@@ -13,6 +13,12 @@ points the mapper must re-anchor (it clears them after the deform).
 (depth + mono scale/shift) as the JAX package does, including the mono_thres
 edge filter and the fall-back to stage 1 when stage 2 has no usable edge.
 The full-resolution multiview validity mask is refreshed lazily, on read.
+
+``group`` is the edge group that ``tracking.mesh_devices`` asks for
+(``parallel.mesh.group_for``: None for one device; building a video for
+n > 1 devices outside an n-rank group raises). ``ba(..., group=)`` then
+solves over this rank's edges (split by source frame) and gathers the
+rows; the mono_thres edge filter is rank 0's.
 """
 
 import threading
@@ -25,6 +31,7 @@ from ..geom import alignment, ba as ba_mod, lie
 from ..nets import droid_net
 from ..ops import corr as corr_mod, depth_filter as df_mod, \
     distance as dist_mod, upsample
+from ..parallel import mesh as mesh_mod
 from ..utils.buckets import bucket
 
 
@@ -40,6 +47,7 @@ class DepthVideo:
         self.BA_type = cfg["tracking"]["backend"]["BA_type"]
         self.mono_thres = cfg["tracking"]["mono_thres"]
         self.counter = 0
+        self.group = mesh_mod.group_for(cfg)
 
         f32, bf = torch.float32, torch.bfloat16
 
@@ -162,6 +170,14 @@ class DepthVideo:
             self.depth_scale[ix] = s
             self.depth_shift[ix] = q
 
+    def sync_scale_shift(self):
+        """Rank 0's scale/shift rows on every rank: the mapper, rank 0's
+        alone, writes them (``set_depth_scale_shift``)."""
+        if self.group is not None:
+            with self.state_lock:
+                mesh_mod.replicate(self.group, self.depth_scale,
+                                   self.depth_shift)
+
     def remove_keyframe(self, ix):
         """Copy frame ix + 1 over frame ix (the caller remaps edges and the
         counter), as the JAX package does."""
@@ -195,6 +211,13 @@ class DepthVideo:
         return f(self.poses, self.disps, self.intrinsics, ii, jj,
                  beta).cpu().numpy()
 
+    def distance_matrix(self, beta=0.3):
+        """All-pairs (counter x counter) bidirectional distance matrix."""
+        N = self.counter
+        ii, jj = np.meshgrid(np.arange(N), np.arange(N), indexing="ij")
+        d = self.distance(ii.reshape(-1), jj.reshape(-1), beta=beta)
+        return d.reshape(N, N)
+
     def upsample(self, ix, mask):
         """Convex-upsample disps of frames ix into disps_up.
         mask: (len(ix), 576, h8, w8)."""
@@ -215,21 +238,22 @@ class DepthVideo:
     # ------------------------------------------------------------------
 
     def ba(self, target, weight, eta, ii, jj, t0=1, t1=None, iters=2,
-           lm=1e-4, ep=0.1, motion_only=False, opt_type="pose_depth"):
+           lm=1e-4, ep=0.1, motion_only=False, opt_type="pose_depth",
+           group=None):
         """target/weight (E, h8, w8, 2); eta (M, h8, w8) damping of the
-        sorted unique ii frames; ii/jj host int arrays."""
+        sorted unique ii frames; ii/jj host int arrays. ``group``: solve
+        edge-sharded (every rank passes all edges)."""
         ii = np.asarray(ii, np.int64)
         jj = np.asarray(jj, np.int64)
         if t1 is None:
             t1 = int(max(ii.max(), jj.max())) + 1
+        args = (target, weight, eta, ii, jj, t0, t1, iters, lm, ep,
+                motion_only)
         if self.BA_type == "DSPO":
-            if not self._dspo(target, weight, eta, ii, jj, t0, t1, iters,
-                              lm, ep, motion_only, opt_type):
-                self._dspo(target, weight, eta, ii, jj, t0, t1, iters, lm,
-                           ep, motion_only, "pose_depth")
+            if not self._dspo(*args, opt_type, group):
+                self._dspo(*args, "pose_depth", group)
         elif self.BA_type == "DBA":
-            self._dspo(target, weight, eta, ii, jj, t0, t1, iters, lm, ep,
-                       motion_only, "pose_depth")
+            self._dspo(*args, "pose_depth", group)
         else:
             raise NotImplementedError(self.BA_type)
 
@@ -247,16 +271,29 @@ class DepthVideo:
         K = min(bucket(max(hi - lo, 1)), self.buffer)
         return min(lo, self.buffer - K), K
 
+    def _shard(self, group, ii, *arrays):
+        """(partition bounds, this rank's edge indices, its rows of each
+        per-edge array)."""
+        if group is None:
+            return (None, slice(None)) + arrays
+        bounds = mesh_mod.frame_bounds(ii, group.world, self.buffer)
+        sel = mesh_mod.rank_edges(ii, bounds)[group.rank]
+        sel_d = self._idx(sel)
+        return (bounds, sel) + tuple(a[sel_d] for a in arrays)
+
     def _dspo(self, target, weight, eta, ii, jj, t0, t1, iters, lm, ep,
-              motion_only, opt_type):
+              motion_only, opt_type, group=None):
         if opt_type == "pose_depth":
             eta_full = self._eta_buffer(eta, ii)
             kbase, K = self._window(int(min(ii.min(), t0)), t1)
             P = bucket(max(t1 - t0, 1))
+            bounds, _, target_l, weight_l = self._shard(group, ii, target,
+                                                        weight)
             self.poses, disps = ba_mod.ba(
-                self.poses, self.disps, self.intrinsics, target, weight,
+                self.poses, self.disps, self.intrinsics, target_l, weight_l,
                 eta_full, ii, jj, t0, t1, kbase, P_max=P, K_max=K,
-                iters=iters, lm=lm, ep=ep, motion_only=motion_only)
+                iters=iters, lm=lm, ep=ep, motion_only=motion_only,
+                group=group, bounds=bounds)
             self.disps = disps.clamp(min=1e-5)
             return True
         if opt_type != "depth_scale":
@@ -285,7 +322,7 @@ class DepthVideo:
             vs = valid.sum(dim=(1, 2)).cpu().numpy()
             bad = ((err / avg > self.mono_thres) | ~np.isfinite(err)
                    | (sc < 0) | (vs < 0.5 * self.h8 * self.w8))
-            keep = ~(bad[ii] | bad[jj])
+            keep = mesh_mod.from_rank0(group, ~(bad[ii] | bad[jj]))
             if keep.sum() == 0:
                 return False
             ii_t, jj_t = ii[keep], jj[keep]
@@ -296,13 +333,17 @@ class DepthVideo:
 
         eta_full = self._eta_buffer(eta, ii_t)
         kbase, K = self._window(int(ii_t.min()), int(ii_t.max()) + 1)
+        bounds, sel, target_t, weight_t = self._shard(group, ii_t, target_t,
+                                                      weight_t)
+        ii_t, jj_t = ii_t[sel], jj_t[sel]
         self.disps, self.depth_scale, self.depth_shift = \
             ba_mod.ba_scale_shift(
                 self.poses, self.disps, self.intrinsics, target_t, weight_t,
                 eta_full, self.mono_disps, self.depth_scale,
                 self.depth_shift, self.valid_depth_mask_small,
                 self._idx(ii_t), self._idx(jj_t), kbase, K_max=K,
-                iters=iters, lm=lm, ep=ep, alpha=0.01)
+                iters=iters, lm=lm, ep=ep, alpha=0.01, group=group,
+                bounds=bounds)
         self.disps = self.disps.clamp(min=1e-5)
         return True
 

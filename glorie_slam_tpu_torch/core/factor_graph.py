@@ -7,6 +7,14 @@ exactly one row per active edge, in the active-edge order of the JAX
 package (its capacity padding only served fixed XLA shapes). Removed
 edges' target/weight rows move to the inactive pool, which the frontend's
 BA also reads.
+
+Under an edge group (``video.group``) every rank holds the whole graph and
+takes the edge proposals of rank 0. ``update_lowmem``'s GRU sweep gives
+each rank whole chunks (the source-frame ranges of 8 frames, so that each
+chunk runs exactly as on one rank and the sweep is bitwise the one-rank
+sweep), gathers the new rows, then solves edge-sharded. ``update`` is the
+trajectory filler's motion-only step, which rank 0 runs alone: it stays on
+one rank.
 """
 
 import numpy as np
@@ -15,6 +23,7 @@ import torch
 from .. import native
 from ..geom import projective
 from ..ops import corr as corr_mod
+from ..parallel import mesh as mesh_mod
 
 _BF = torch.bfloat16
 EP = 1e-7          # added to the GRU's damping before every BA solve
@@ -27,7 +36,13 @@ def graph_update_step(tn, poses, disps, intrinsics, feat_pyr, net, inp,
 
     net/inp (E, h, w, 128) bf16; target (E, h, w, 2); ii/jj/kk (E,) long.
     Returns (net' (E,h,w,128), target', weight' (E,h,w,2) f32,
-    eta (M,h,w) f32, upmask (M,576,h,w) f32 or None, coords1)."""
+    eta (M,h,w) f32, upmask (M,576,h,w) f32 or None, coords1). An empty
+    edge set (a rank whose frames hold no edge) returns empty outputs."""
+    if ii.numel() == 0:
+        h, w = target.shape[1:3]
+        z = target.new_zeros((0, h, w, 2))
+        return (net, z, z, z.new_zeros((0, h, w)),
+                z.new_zeros((0, 576, h, w)) if with_upmask else None, z)
     coords1, _ = projective.projective_transform(poses, disps, intrinsics,
                                                  ii, jj)
     motn = torch.cat([coords1 - coords0[None], target - coords1], dim=-1)
@@ -186,6 +201,15 @@ class FactorGraph:
         self.jj[self.jj >= ix] -= 1
         self.rm_factors(m, store=False)
 
+    def filter_edges(self):
+        """Remove low-confidence long-range edges into the bad list
+        (reference factor_graph.py:69-76)."""
+        conf = self.weight.mean(dim=(1, 2, 3)).cpu().numpy()
+        mask = (np.abs(self.ii - self.jj) > 2) & (conf < 0.001)
+        self.ii_bad = np.concatenate([self.ii_bad, self.ii[mask]])
+        self.jj_bad = np.concatenate([self.jj_bad, self.jj[mask]])
+        self.rm_factors(mask, store=False)
+
     def clear_edges(self):
         self.rm_factors(np.ones(len(self.ii), bool), store=False)
 
@@ -231,7 +255,16 @@ class FactorGraph:
         frames (bounded activations), then BA over all edges; ``steps``
         times, alternating pose_depth / depth_scale when ``enable_wq``."""
         v = self.video
+        group = v.group
+        s = 8
         for step in range(steps):
+            starts = range(0, int(self.jj.max()) + 1, s)
+            bounds = None
+            if group is not None:
+                bounds = mesh_mod.frame_bounds(self.ii, group.world,
+                                               v.buffer, quantum=s)
+                lo, hi = bounds[group.rank], bounds[group.rank + 1]
+                starts = [i for i in starts if lo <= i < hi]
             ii_all, jj_all = self._idx(self.ii), self._idx(self.jj)
             coords1_all, _ = projective.projective_transform(
                 v.poses, v.disps, v.intrinsics, ii_all, jj_all)
@@ -241,8 +274,7 @@ class FactorGraph:
             net_new = self.net.clone()
             target_new = self.target.clone()
             weight_new = self.weight.clone()
-            s = 8
-            for i in range(0, int(self.jj.max()) + 1, s):
+            for i in starts:
                 sel_np = np.where((self.ii >= i) & (self.ii < i + s))[0]
                 if len(sel_np) == 0:
                     continue
@@ -265,6 +297,9 @@ class FactorGraph:
                 kx_d = self._idx(kx)
                 self.damping[kx_d] = eta.float()
                 v.upsample(kx, upmask)
+            if group is not None:
+                net_new, target_new, weight_new = self._gather_sweep(
+                    group, bounds, net_new, target_new, weight_new)
             self.net, self.target, self.weight = (net_new, target_new,
                                                   weight_new)
             eta_ba = 0.2 * self.damping[self._idx(np.unique(self.ii))] + EP
@@ -272,7 +307,35 @@ class FactorGraph:
                         else "pose_depth")
             v.ba(self.target, self.weight, eta_ba, self.ii, self.jj, t0, t1,
                  iters=itrs, lm=1e-5, ep=1e-2, motion_only=False,
-                 opt_type=opt_type)
+                 opt_type=opt_type, group=group)
+
+    def _gather_sweep(self, group, bounds, net, target, weight):
+        """Every rank's new rows of one sweep, the same on every rank
+        after: its edges' net, target and weight (placed into the given
+        tensors, which are returned) and its frames' damping and
+        ``disps_up`` (written into the graph and the video)."""
+        v = self.video
+        act = mesh_mod.rank_edges(self.ii, bounds)
+        sizes = [len(a) for a in act]
+        mine = self._idx(act[group.rank])
+        order = self._idx(np.concatenate(act))
+        net_parts = group.gather_rows(net[mine], sizes)
+        net[order] = torch.cat(net_parts)
+        tw = group.gather_rows(torch.cat([target[mine], weight[mine]], -1),
+                               sizes)
+        tw = torch.cat(tw)
+        target[order], weight[order] = tw[..., :2], tw[..., 2:]
+        kx = np.unique(self.ii)
+        lo, hi = bounds[group.rank], bounds[group.rank + 1]
+        own = self._idx(kx[(kx >= lo) & (kx < hi)])
+        kx_d = self._idx(kx)
+        nd, nu = self.h8 * self.w8, v.ht * v.wd
+        rows = torch.cat([self.damping[own].reshape(len(own), nd),
+                          v.disps_up[own].reshape(len(own), nu)], dim=1)
+        rows = mesh_mod.gather_frame_rows(group, bounds, kx, rows)
+        self.damping[kx_d] = rows[:, :nd].reshape(len(kx), self.h8, self.w8)
+        v.disps_up[kx_d] = rows[:, nd:].reshape(len(kx), v.ht, v.wd)
+        return net, target, weight
 
     # ------------------------------------------------------------------
     # edge proposal
@@ -305,6 +368,7 @@ class FactorGraph:
             self.max_factors,
             np.concatenate([self.ii, self.ii_bad, self.ii_inac]),
             np.concatenate([self.jj, self.jj_bad, self.jj_inac]))
+        n_ii, n_jj = mesh_mod.from_rank0(self.video.group, (n_ii, n_jj))
         if pre_rm_mask is not None:
             self.maintain(pre_rm_mask, n_ii, n_jj, remove=remove)
         elif len(n_ii):
@@ -325,6 +389,7 @@ class FactorGraph:
         n_ii, n_jj = native.backend_proximity_edges(
             d.reshape(ilen, jlen), rawd, t_start, t_end, t_start_loop, nms,
             radius, thresh, max_factors, loop)
+        n_ii, n_jj = mesh_mod.from_rank0(self.video.group, (n_ii, n_jj))
         if len(n_ii) < 3:
             return 0
         self.add_factors(n_ii, n_jj, remove=True)

@@ -11,17 +11,32 @@ Counterpart of ``glorie_slam_tpu/geom/ba.py`` with the same semantics:
   depth C += eta; a failed Cholesky gives a zero step;
 * retraction pose <- exp(dx) ∘ pose, disp += dz.
 
+* RGB-D prior (``sensor_disps``, JAX ``ba.py:184-187, 240-244``): where a
+  sensor disparity is > 0, the depth block's damping ``eta`` gives way to
+  ``alpha`` and the residual pulls the disparity toward the sensor's. The
+  tracking path passes none (the JAX package passes zeros: the same).
+
 The JAX package assembles the pose Hessian and the Schur complement with
 one-hot matrix products (the TPU's matrix unit); here the same blocks are
 placed with ``index_add_`` and the per-frame Schur grams are one batched
 ``bmm``. Sums run in another order, so results agree to float32 rounding.
-The RGB-D sensor-prior term is not ported: this slice is monocular (the
-JAX tracking path always passes zero sensor disparities).
+
+Edge-sharded (``group``, ``bounds`` from ``parallel.mesh``): each rank
+linearizes its own edges (source frame in its range) over their pixels
+and builds its own frames' depth blocks and Schur grams. The small
+products are gathered, in the one-rank layout: every edge's 6x6 pose
+blocks (120 floats an edge) and every window frame's gram and its rhs.
+Every rank then places them with the one-rank code, solves, and takes
+rank 0's pose step (``index_add_`` on the card sums in atomic order), and
+back-substitutes its own frames' disparities; the window's rows are
+gathered after the last iteration. On the CPU the result is bitwise the
+one-rank result.
 """
 
 import numpy as np
 import torch
 
+from ..parallel import mesh as mesh_mod
 from . import lie, projective
 
 
@@ -63,11 +78,14 @@ def _edge_blocks(poses, disps, intrinsics, target, weight, ii, jj):
     wp = w * (ii != jj)[:, None, None].to(w.dtype)
     wJi = wp[..., None] * Ji
     wJj = wp[..., None] * Jj
-    Hii = torch.einsum("npki,npkj->nij", wJi, Ji)
-    Hij = torch.einsum("npki,npkj->nij", wJi, Jj)
-    Hjj = torch.einsum("npki,npkj->nij", wJj, Jj)
-    vi = torch.einsum("npki,npk->ni", wJi, r)
-    vj = torch.einsum("npki,npk->ni", wJj, r)
+    # two products, [Hii | Hij | vi] and [Hjj | vj]: with r as a seventh
+    # column the gradients take the 6x6 blocks' GEMM (on the card a
+    # one-column product's rounding depends on the batch's edge count)
+    r1 = r[..., None]
+    Fi = torch.einsum("npki,npkj->nij", wJi, torch.cat([Ji, Jj, r1], -1))
+    Fj = torch.einsum("npki,npkj->nij", wJj, torch.cat([Jj, r1], -1))
+    Hii, Hij, vi = Fi[..., :6], Fi[..., 6:12], Fi[..., 12]
+    Hjj, vj = Fj[..., :6], Fj[..., 6]
     Ei = torch.einsum("npki,npk->nip", wJi, Jz)
     Ej = torch.einsum("npki,npk->nip", wJj, Jz)
     return Hii, Hij, Hjj, vi, vj, Ei, Ej, C, wz
@@ -127,15 +145,32 @@ def _apply_pose_retr(poses, dx, t0, t1, P_max):
     return torch.where(free[:, None], lie.retr(poses, dx_full), poses)
 
 
+def _gather_edges(group, sizes, order, E, *blocks):
+    """Every edge's per-edge blocks, in the one-rank edge order."""
+    n = [int(np.prod(b.shape[1:])) for b in blocks]
+    E_l = blocks[0].shape[0]
+    flat = torch.cat([b.reshape(E_l, k) for b, k in zip(blocks, n)], dim=1)
+    parts = torch.cat(group.gather_rows(flat, sizes))
+    out = parts.new_empty((E, parts.shape[1]))
+    out[order] = parts
+    return [x.reshape((E,) + b.shape[1:])
+            for x, b in zip(out.split(n, dim=1), blocks)]
+
+
 def ba(poses, disps, intrinsics, target, weight, eta, ii, jj, t0, t1, kbase,
        *, P_max: int, K_max: int, iters: int = 2, lm: float = 1e-4,
        ep: float = 0.1, motion_only: bool = False, depth_only: bool = False,
-       refine: int = 1):
+       refine: int = 1, sensor_disps=None, alpha: float = 0.05, group=None,
+       bounds=None):
     """``iters`` Gauss-Newton DBA iterations -> (poses, disps).
 
     poses (N,7), disps (N,ht,wd), target/weight (E,ht,wd,2), eta (N,ht,wd)
     full-buffer depth damping; ii/jj host int arrays (E,), -1 = padding;
     free poses are [t0, t1); depths of frames [kbase, kbase + K_max) update.
+    sensor_disps (N,ht,wd) or None: RGB-D prior disparities (> 0 where
+    measured), weighted ``alpha``. Under ``group`` (with the partition's
+    ``bounds``) ii/jj are every rank's edges and target/weight this
+    rank's rows of them (``mesh.rank_edges(ii, bounds)[rank]``).
     """
     N, ht, wd = disps.shape
     npix = ht * wd
@@ -151,28 +186,49 @@ def ba(poses, disps, intrinsics, target, weight, eta, ii, jj, t0, t1, kbase,
     P1 = P_max + 1
 
     eta_win = eta[kbase:kbase + K_max].reshape(K_max, npix)
+    if sensor_disps is not None:
+        sens_win = sensor_disps[kbase:kbase + K_max].reshape(K_max, npix)
+        m_sens = (sens_win > 0).to(poses.dtype)
     slot_i = _pose_slot(ii_t, t0, t1, P_max)
     slot_j = _pose_slot(jj_t, t0, t1, P_max)
-    kidx = torch.where(ii_t >= 0, ii_t - kbase, torch.full_like(ii_t, K_max))
+    ii_l, jj_l, ii_lt, jj_lt = ii_np, jj_np, ii_t, jj_t
+    if group is not None:
+        act = mesh_mod.rank_edges(ii_np, bounds)
+        sizes = [len(a) for a in act]
+        order = torch.as_tensor(np.concatenate(act), device=dev)
+        mine = act[group.rank]
+        ii_l, jj_l = ii_np[mine], jj_np[mine]
+        ii_lt, jj_lt = ii_t[mine], jj_t[mine]
+    kidx = torch.where(ii_lt >= 0, ii_lt - kbase,
+                       torch.full_like(ii_lt, K_max))
     kidx = torch.where((kidx >= 0) & (kidx < K_max), kidx,
                        torch.full_like(kidx, K_max))
 
     if not motion_only:
         deg = np.bincount(ii_np[(ii_np >= kbase) & (ii_np < kbase + K_max)]
                           - kbase, minlength=1).max() if E else 0
-        adj_np, mask_np = build_adjacency(ii_np, E, kbase, K_max,
-                                          max(int(deg), 1))
+        Dmax = max(int(deg), 1)
+        adj_np, mask_np = build_adjacency(ii_np, E, kbase, K_max, Dmax)
         adj = torch.as_tensor(adj_np, device=dev)
-        adj_mask = torch.as_tensor(mask_np, device=dev)
         jj_pad = torch.cat([jj_t, jj_t.new_full((1,), -1)])
         ks = torch.arange(K_max, device=dev)
         slots_all = torch.cat([
             _pose_slot(kbase + ks, t0, t1, P_max)[:, None],
             _pose_slot(jj_pad[adj], t0, t1, P_max)], dim=1)   # (K, L)
+        if group is not None:
+            # this rank's coupling rows: its frames' edges, as one rank
+            # lists them
+            adj_np, mask_np = build_adjacency(ii_l, len(ii_l), kbase, K_max,
+                                              Dmax)
+            adj = torch.as_tensor(adj_np, device=dev)
+        adj_mask = torch.as_tensor(mask_np, device=dev)
 
     for _ in range(iters):
         Hii, Hij, Hjj, vi, vj, Ei, Ej, Ce, wze = _edge_blocks(
-            poses, disps, intrinsics, target, weight, ii_t, jj_t)
+            poses, disps, intrinsics, target, weight, ii_lt, jj_lt)
+        if group is not None:
+            Hii, Hij, Hjj, vi, vj = _gather_edges(group, sizes, order, E,
+                                                  Hii, Hij, Hjj, vi, vj)
         H = (_place_blocks(P1, slot_i, slot_i, Hii)
              + _place_blocks(P1, slot_j, slot_j, Hjj)
              + _place_blocks(P1, slot_i, slot_j, Hij)
@@ -184,15 +240,21 @@ def ba(poses, disps, intrinsics, target, weight, eta, ii, jj, t0, t1, kbase,
                 P_max * 6, P_max * 6)
             dx = damped_cholesky_solve(Hm, v[:P_max].reshape(-1), ep, lm,
                                        refine=refine).reshape(P_max, 6)
+            if group is not None:
+                dx = group.broadcast_(dx)
             poses = _apply_pose_retr(poses, dx, t0, t1, P_max)
             continue
 
         C = Ce.new_zeros((K_max + 1, npix)).index_add_(0, kidx, Ce)[:K_max]
         wz = wze.new_zeros((K_max + 1, npix)).index_add_(0, kidx, wze)
         wz = wz[:K_max]
-        C = C + eta_win
-        Q = 1.0 / C
         disp_win = disps[kbase:kbase + K_max].reshape(K_max, npix)
+        if sensor_disps is None:
+            C = C + eta_win
+        else:
+            C = C + m_sens * alpha + (1 - m_sens) * eta_win
+            wz = wz - m_sens * alpha * (disp_win - sens_win)
+        Q = 1.0 / C
 
         # per-frame coupling rows: [sum of Ei over the frame's edges | Ej]
         Ei_pad = torch.cat([Ei, Ei.new_zeros((1, 6, npix))])
@@ -206,6 +268,14 @@ def ba(poses, disps, intrinsics, target, weight, eta, ii, jj, t0, t1, kbase,
                          rows.reshape(K_max, L * 6, npix).transpose(1, 2))
         gram = gram.reshape(K_max, L, 6, L, 6).permute(0, 1, 3, 2, 4)
         ev = torch.einsum("kldp,kp->kld", rq, wz)
+        if group is not None:
+            # every window frame's gram and rhs, from its owner
+            n_g = L * L * 36
+            both = torch.cat([gram.reshape(K_max, n_g),
+                              ev.reshape(K_max, L * 6)], dim=1)
+            both = mesh_mod.gather_window(group, bounds, both, kbase)
+            gram = both[:, :n_g].reshape(gram.shape)
+            ev = both[:, n_g:].reshape(ev.shape)
         S = _place_blocks(P1, slots_all[:, :, None].expand(-1, L, L),
                           slots_all[:, None, :].expand(-1, L, L), gram)
         vs = _place_rows(P1, slots_all, ev)
@@ -215,6 +285,8 @@ def ba(poses, disps, intrinsics, target, weight, eta, ii, jj, t0, t1, kbase,
         rhs = (v - vs)[:P_max].reshape(-1)
         dx = damped_cholesky_solve(A, rhs, ep, lm, refine=refine)
         dx = dx.reshape(P_max, 6)
+        if group is not None:
+            dx = group.broadcast_(dx)
         dx_pad = torch.cat([dx, dx.new_zeros((1, 6))])
         dx_rows = dx_pad[slots_all]                         # sentinel -> 0
         dz = Q * (wz - torch.einsum("kldp,kld->kp", rows, dx_rows))
@@ -223,18 +295,27 @@ def ba(poses, disps, intrinsics, target, weight, eta, ii, jj, t0, t1, kbase,
             poses = _apply_pose_retr(poses, dx, t0, t1, P_max)
         disps = disps.clone()
         disps[kbase:kbase + K_max] = (disp_win + dz).reshape(K_max, ht, wd)
+    if group is not None and not motion_only and iters:
+        # a rank's edges read only its own frames' disparities, so the
+        # rows are gathered once, after the last iteration
+        disps[kbase:kbase + K_max] = mesh_mod.gather_window(
+            group, bounds, disps[kbase:kbase + K_max], kbase)
     return poses, disps
 
 
 def ba_scale_shift(poses, disps, intrinsics, target, weight, eta,
                    mono_disps, scales, shifts, valid_depth_mask, ii, jj,
                    kbase, *, K_max: int, iters: int = 2, lm: float = 1e-4,
-                   ep: float = 0.1, alpha: float = 0.01):
+                   ep: float = 0.1, alpha: float = 0.01, group=None,
+                   bounds=None):
     """DSPO stage 2: disparities + per-frame mono (scale, shift); poses fixed.
 
     The per-frame 2x2 (scale, shift) blocks are independent once the pixel
     disparities are Schur-eliminated, so each frame solves its own 2x2.
     ii/jj: (E,) tensors, -1 = dropped edge. Returns (disps, scales, shifts).
+    Under ``group`` (with the partition's ``bounds``) the edges are this
+    rank's: each frame's solve is its owner's, and the window's rows are
+    gathered after the last iteration.
     """
     N, ht, wd = disps.shape
     npix = ht * wd
@@ -315,6 +396,12 @@ def ba_scale_shift(poses, disps, intrinsics, target, weight, eta,
         scale_win = scale_win + dw
         shift_win = shift_win + dq
 
+    if group is not None and iters:
+        rows = torch.cat([disps[win].reshape(K_max, npix),
+                          scale_win[:, None], shift_win[:, None]], dim=1)
+        rows = mesh_mod.gather_window(group, bounds, rows, kbase)
+        disps[win] = rows[:, :npix].reshape(K_max, ht, wd)
+        scale_win, shift_win = rows[:, npix], rows[:, npix + 1]
     scales = scales.clone()
     shifts = shifts.clone()
     scales[win] = scale_win

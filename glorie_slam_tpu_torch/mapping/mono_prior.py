@@ -33,16 +33,18 @@ def resize(x, size, mode):
 
 
 class MonoDepthEstimator:
-    def __init__(self, cfg, infer_size=512, device=None):
+    def __init__(self, cfg, infer_size=512, device=None, write_cache=True):
         """cfg["mono_prior"]: ``depth`` ("omnidata"), ``depth_pretrained``
         (the checkpoint; random weights, seed 0, when it is absent);
-        device: the card unless "cpu" is asked for."""
+        device: the card unless "cpu" is asked for; ``write_cache``: False
+        reads the cache but never writes it (ranks other than 0)."""
         from ..device import resolve_device
 
         if cfg["mono_prior"]["depth"] != "omnidata":
             raise NotImplementedError(cfg["mono_prior"]["depth"])
         self.device = resolve_device(device)
         self.infer_size = infer_size
+        self.write_cache = write_cache
         model = DPTDepthModel(size=infer_size)
         ckpt = cfg["mono_prior"].get("depth_pretrained")
         if ckpt and os.path.exists(ckpt):
@@ -74,5 +76,10 @@ class MonoDepthEstimator:
         if os.path.exists(path):
             return np.load(path)
         depth = self.predict(image)
-        np.save(path, depth.cpu().numpy())
+        if self.write_cache:
+            # written whole under a temporary name, then renamed: other
+            # ranks of an edge group read the cache while rank 0 writes
+            tmp = f"{path}.{os.getpid()}.tmp.npy"
+            np.save(tmp, depth.cpu().numpy())
+            os.replace(tmp, path)
         return depth

@@ -15,9 +15,14 @@ def cvx_upsample(data, mask):
     mask = torch.softmax(mask.reshape(B, 9, 8, 8, ht, wd), dim=1)
     patches = F.unfold(data.permute(0, 3, 1, 2), 3, padding=1)
     patches = patches.reshape(B, D, 9, ht, wd)
-    # up[b, h, y, w, x, d] = sum_n mask[b,n,y,x,h,w] * patches[b,d,n,h,w]
-    up = torch.einsum("bnyxhw,bdnhw->bhywxd", mask, patches)
-    return up.reshape(B, 8 * ht, 8 * wd, D)
+    # up[b, d, y, x, h, w] = sum_n mask[b,n,y,x,h,w] * patches[b,d,n,h,w],
+    # summed elementwise in n order: a batched product's rounding on the
+    # card depends on the batch size, and edge-sharded ranks upsample
+    # different frame counts
+    up = mask[:, None, 0] * patches[:, :, 0, None, None]
+    for n in range(1, 9):
+        up = up + mask[:, None, n] * patches[:, :, n, None, None]
+    return up.permute(0, 4, 2, 5, 3, 1).reshape(B, 8 * ht, 8 * wd, D)
 
 
 def upsample_disp(disp, mask):

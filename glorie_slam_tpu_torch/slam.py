@@ -25,6 +25,14 @@ package's layout: ``utils/checkpoint.py``), and ``run(resume_from=path)``
 continues from such a file. With ``wandb: True`` a wandb run is opened
 where ``wandb`` is installed (a message says so where it is not).
 
+``tracking.mesh_devices`` n > 1 runs the tracker edge-sharded over the n
+ranks of an edge group (``parallel/``; the CLI starts them, or torchrun):
+every rank tracks, with the edge work split and the host decisions taken
+from rank 0; the mapper, the asynchronous worker, checkpoints, the
+trajectory filler, every evaluation, every file written and the printing
+are rank 0's, while the final BA runs on every rank. Without such a group
+the run raises. A resume loads the file on every rank.
+
 Not here: the JAX package's ahead-of-time compile warm-up and shape profile
 (XLA machinery with no counterpart in eager PyTorch). A mapper, an online
 prior or an evaluation that fails fails the run: the JAX package's
@@ -35,6 +43,7 @@ evaluations are not copied.
 import os
 
 import numpy as np
+import torch
 
 from .core.depth_video import DepthVideo
 from .device import resolve_device
@@ -43,6 +52,7 @@ from .mapping.mapper import Mapper
 from .mapping.mono_prior import MonoDepthEstimator
 from .nets.tracker_net import TrackerNet
 from .ops import cuda_corr
+from .parallel import mesh as mesh_mod
 from .tracking.backend import Backend
 from .tracking.tracker import Tracker
 from .tracking.trajectory_filler import PoseTrajectoryFiller
@@ -77,14 +87,23 @@ class SLAM:
         card unless ``"cpu"`` is asked for."""
         self.cfg = cfg
         self.stream = stream
+        self.group = mesh_mod.group_for(cfg)
+        if self.group is not None:
+            if (device is not None
+                    and torch.device(device).type != self.group.device.type):
+                raise ValueError(f"device {device} but the edge group runs "
+                                 f"on {self.group.device}")
+            device = self.group.device
+        self.rank0 = self.group is None or self.group.rank == 0
         self.device = resolve_device(device)
         self.output = (f"{cfg['data']['output']}/{cfg['setting']}/"
                        f"{cfg['scene']}")
         os.makedirs(f"{self.output}/logs/", exist_ok=True)
 
         self.H, self.W, self.fx, self.fy, self.cx, self.cy = update_cam(cfg)
-        self.printer = Printer(len(stream), cfg.get("silence", False))
-        self.logger = self._wandb_run(cfg)
+        self.printer = Printer(len(stream),
+                               cfg.get("silence", False) or not self.rank0)
+        self.logger = self._wandb_run(cfg) if self.rank0 else None
         ckpt = cfg["tracking"].get("pretrained")
         if ckpt and os.path.exists(ckpt):
             self.tracker_net = TrackerNet.from_checkpoint(ckpt,
@@ -107,7 +126,8 @@ class SLAM:
         self._launches = {k.name: k.launches for k in cuda_corr.KERNELS}
         mono_predictor = self._make_mono_predictor(cfg)
         self.mapper = self.async_mapper = on_kf = None
-        if not cfg.get("only_tracking", False):
+        mapping = not cfg.get("only_tracking", False)
+        if mapping and self.rank0:
             self.mapper = Mapper(self, cfg)
             if cfg["mapping"].get("async_mapping", True):
                 self.async_mapper = AsyncMapper(self.mapper, self.video,
@@ -119,7 +139,9 @@ class SLAM:
             self.tracker_net, self.video, cfg, printer=self.printer,
             mono_predictor=mono_predictor, on_keyframe=on_kf,
             timer=self.timer)
-        if self.tracker.checkpoint_every:
+        # the mapper writes scale/shift rows on rank 0 alone
+        self.tracker.sync_scale_shift = mapping and self.group is not None
+        if self.tracker.checkpoint_every and self.rank0:
             self.tracker.checkpoint_cb = lambda nxt: self.save_state(
                 f"{self.output}/state.npz", nxt)
 
@@ -151,7 +173,8 @@ class SLAM:
         if not mp_cfg:
             return None
         if mp_cfg.get("predict_online", False):
-            self.mono_estimator = MonoDepthEstimator(cfg, device=self.device)
+            self.mono_estimator = MonoDepthEstimator(
+                cfg, device=self.device, write_cache=self.rank0)
             return self.mono_estimator.predict_and_cache
 
         def load(tstamp, image):
@@ -203,6 +226,11 @@ class SLAM:
         includes its work."""
         timer = self.timer
         timer.sync = True
+        if not self.rank0:
+            if self.cfg["tracking"]["backend"].get("final_ba", True):
+                self.final_ba()
+            self.printer.terminate()
+            return
         if self.async_mapper is not None:
             # the tracker's end handshake joined it already; a run cut short
             # still gets a quiescent mapper here

@@ -4,10 +4,11 @@ Counterpart of ``glorie_slam_tpu/tracking/frontend.py``: initialization at
 ``warmup`` keyframes, then per keyframe: proximity edges (with rm-by-age
 and eviction in one maintenance step), 8 DSPO rounds, the keyframe-distance
 check (cull or keep), and either loop closure past the window or 4 more
-rounds.
+rounds. Under an edge group the keyframe-distance decision is rank 0's.
 """
 
 from ..core.factor_graph import FactorGraph
+from ..parallel import mesh as mesh_mod
 from .backend import Backend
 from .fused import graph_update_rounds
 
@@ -52,7 +53,8 @@ class Frontend:
         if d is None:
             d = self.video.distance([self.t1 - 2], [self.t1 - 1],
                                     beta=self.beta, bidirectional=True)[0]
-        if d < self.keyframe_thresh:
+        if mesh_mod.from_rank0(self.video.group,
+                               bool(d < self.keyframe_thresh)):
             g.rm_keyframe(self.t1 - 1)
             self.video.counter -= 1
             self.t1 -= 1

@@ -17,6 +17,17 @@ As in the JAX package, the convex upsample runs once, after the last
 round, and the keyframe distance d(t1-2, t1-1) is computed on the final
 state. The window sizes that change results (M_cur, the pose/depth windows
 and their clamping) are computed exactly as the JAX package computes them.
+
+Under an edge group (``video.group``, ``tracking.mesh_devices`` > 1; the
+counterpart of the JAX package's ``edge_mesh``) the active edges and the
+inactive block are split by source frame (``parallel/mesh.py``): each rank
+runs the GRU update, kernel A's lookups and the BA linearization of its
+own edges, with rank-local GraphAgg slots; every rank solves the same
+pose system (``geom/ba.py``) and the disparity, scale and shift rows are
+gathered after each solve. The validity refresh and the scale/shift realignment run
+replicated; the mono_thres edge filter is rank 0's. Net, target and
+weight stay sharded through the rounds and are gathered into the graph
+once, at the end, with the damping and ``disps_up`` rows.
 """
 
 import numpy as np
@@ -26,6 +37,7 @@ from ..core.depth_video import valid_mask_update
 from ..core.factor_graph import EP, graph_update_step
 from ..geom import alignment, ba as ba_mod
 from ..ops import distance as dist_mod, upsample as up_mod
+from ..parallel import mesh as mesh_mod
 from ..utils.buckets import bucket
 
 
@@ -41,10 +53,13 @@ def _stable_caps(graph):
 
 
 def _assemble(graph, t0_arg, t1_arg, use_inactive):
-    """Edge sets and solver windows of one rounds call."""
+    """Edge sets and solver windows of one rounds call, and this rank's
+    part of them: ``act`` / ``ba_own`` index its active and BA edges
+    (None without a group), ``ii``/``jj``/``kx``/``kk`` are its active
+    edges and their GraphAgg slots, ``jj_ba_l`` its BA edges' targets,
+    ``tgt_in``/``wgt_in`` its rows of the inactive block."""
     v = graph.video
     E_cap, span_cap = _stable_caps(graph)
-    kx, kk = np.unique(graph.ii, return_inverse=True)
     t0 = t0_arg if t0_arg is not None else max(1, int(graph.ii.min()) + 1)
     if use_inactive:
         sel = np.where((graph.ii_inac >= t0 - 3)
@@ -66,10 +81,28 @@ def _assemble(graph, t0_arg, t1_arg, use_inactive):
                    span_cap), v.buffer)
     frame_mask = torch.zeros(v.buffer, dtype=torch.bool, device=v.device)
     frame_mask[graph._idx(np.unique(ii_ba))] = True
-    return dict(kx=kx, kk=kk, t0=t0, t1=t1, ii_ba=ii_ba, jj_ba=jj_ba,
-                tgt_in=graph.target_inac[sel_d],
-                wgt_in=graph.weight_inac[sel_d], kbase_pd=kbase_pd,
-                K_pd=K_pd, P_max=P_max, K_ds=K_ds, frame_mask=frame_mask)
+    st = dict(t0=t0, t1=t1, ii_ba=ii_ba, jj_ba=jj_ba, kbase_pd=kbase_pd,
+              K_pd=K_pd, P_max=P_max, K_ds=K_ds, frame_mask=frame_mask,
+              kx_all=np.unique(graph.ii), bounds=None, act=None,
+              ba_own=None)
+    group = v.group
+    if group is None:
+        ii, jj, jj_ba_l = graph.ii, graph.jj, jj_ba
+    else:
+        bounds = mesh_mod.frame_bounds(graph.ii, group.world, v.buffer)
+        act = mesh_mod.rank_edges(graph.ii, bounds)
+        ba_own = mesh_mod.rank_edges(ii_ba, bounds)[group.rank]
+        sel = sel[ba_own[ba_own < len(sel)]]
+        sel_d = graph._idx(sel)
+        mine = act[group.rank]
+        ii, jj = graph.ii[mine], graph.jj[mine]
+        jj_ba_l = jj_ba[ba_own]
+        st.update(bounds=bounds, act=act, ba_own=ba_own)
+    kx, kk = np.unique(ii, return_inverse=True)
+    st.update(ii=ii, jj=jj, kx=kx, kk=kk, jj_ba_l=jj_ba_l,
+              tgt_in=graph.target_inac[sel_d],
+              wgt_in=graph.weight_inac[sel_d])
+    return st
 
 
 def graph_update_rounds(graph, rounds: int, t0=None, t1=None, itrs=2,
@@ -83,8 +116,10 @@ def graph_update_rounds(graph, rounds: int, t0=None, t1=None, itrs=2,
     if len(graph.ii) == 0:
         return None
     v = graph.video
+    group = v.group
     st = _assemble(graph, t0, t1, use_inactive)
     t0, t1 = st["t0"], st["t1"]
+    bounds = st["bounds"]
     dspo_on = v.BA_type == "DSPO" and alternate and v.counter > 0
     mv = v.cfg["tracking"]["multiview_filter"]
     mv_thresh, visible_num = float(mv["thresh"]), int(mv["visible_num"])
@@ -94,26 +129,32 @@ def graph_update_rounds(graph, rounds: int, t0=None, t1=None, itrs=2,
     intr = v.intrinsics
     feat_pyr = v.corr_pyr
 
-    ii_act, jj_act = graph._idx(graph.ii), graph._idx(graph.jj)
+    ii_act, jj_act = graph._idx(st["ii"]), graph._idx(st["jj"])
     kk, kx = graph._idx(st["kk"]), graph._idx(st["kx"])
     M = len(st["kx"])
     ii_ba_d, jj_ba_d = graph._idx(st["ii_ba"]), graph._idx(st["jj_ba"])
     poses, disps = v.poses, v.disps
     dsc, dsh, vm = v.depth_scale, v.depth_shift, v.valid_depth_mask_small
-    net, target, weight = graph.net, graph.target, graph.weight
+    net, inp = graph.net, graph.inp
+    target, weight = graph.target, graph.weight
+    if group is not None:
+        mine = graph._idx(st["act"][group.rank])
+        net, inp = net[mine], inp[mine]
+        target, weight = target[mine], weight[mine]
     damping = graph.damping.clone()
 
     def run_pd(poses, disps, wgt, eta_f):
         p2, d2 = ba_mod.ba(
             poses, disps, intr, tgt_comb, wgt, eta_f, st["ii_ba"],
             st["jj_ba"], t0, t1, st["kbase_pd"], P_max=st["P_max"],
-            K_max=st["K_pd"], iters=itrs, lm=lm, ep=ep, refine=0)
+            K_max=st["K_pd"], iters=itrs, lm=lm, ep=ep, refine=0,
+            group=group, bounds=bounds)
         return p2, d2.clamp(min=1e-5)
 
     for r in range(rounds):
         is_ds = dspo_on and r % 2 == 1
         net, target, weight, eta, _, _ = graph_update_step(
-            graph.tn, poses, disps, intr, feat_pyr, net, graph.inp, target,
+            graph.tn, poses, disps, intr, feat_pyr, net, inp, target,
             ii_act, jj_act, kk, graph.coords0, M, with_upmask=False)
         damping[kx] = eta
         eta_val = 0.2 * damping + EP
@@ -150,34 +191,44 @@ def graph_update_rounds(graph, rounds: int, t0=None, t1=None, itrs=2,
             bad = torch.zeros(Nbuf, dtype=torch.bool, device=dev)
             bad[idx] = bad_w
             keep_e = (~bad[ii_ba_d] & ~bad[jj_ba_d]).cpu().numpy()
+            keep_e = mesh_mod.from_rank0(group, keep_e)
         else:
             keep_e = np.ones(len(st["ii_ba"]), bool)
         if not (keep_e.any() and v.counter > 0):
             poses, disps = run_pd(poses, disps, wgt_comb, eta_full)
             continue
         ii_ds = np.where(keep_e, st["ii_ba"], -1)
-        keep_d = torch.as_tensor(keep_e, device=dev)
-        wgt_ds = wgt_comb * keep_d[:, None, None, None].to(wgt_comb.dtype)
         haskept = torch.zeros(Nbuf, dtype=torch.bool, device=dev)
         haskept[graph._idx(ii_ds[keep_e])] = True
         eta_ds = torch.where(haskept[:, None, None], eta_val,
                              torch.full_like(eta_val, 1e-7))
         kbase_ds = int(np.clip(ii_ds[keep_e].min(), 0, Nbuf - M_cur))
+        if group is not None:
+            keep_e, ii_ds = keep_e[st["ba_own"]], ii_ds[st["ba_own"]]
+        keep_d = torch.as_tensor(keep_e, device=dev)
+        wgt_ds = wgt_comb * keep_d[:, None, None, None].to(wgt_comb.dtype)
         disps, dsc, dsh = ba_mod.ba_scale_shift(
             poses, disps, intr, tgt_comb, wgt_ds, eta_ds, v.mono_disps,
-            dsc, dsh, vm, graph._idx(ii_ds), jj_ba_d, kbase_ds,
-            K_max=M_cur, iters=itrs, lm=lm, ep=ep, alpha=0.01)
+            dsc, dsh, vm, graph._idx(ii_ds), graph._idx(st["jj_ba_l"]),
+            kbase_ds, K_max=M_cur, iters=itrs, lm=lm, ep=ep, alpha=0.01,
+            group=group, bounds=bounds)
         disps = disps.clamp(min=1e-5)
 
-    # upsample mask from the final hidden state, once
-    _, um = graph.tn.agg(net.permute(0, 3, 1, 2), kk, M)
     ta = torch.tensor([max(t1 - 2, 0)], device=dev)
     tb = torch.tensor([max(t1 - 1, 0)], device=dev)
     kf_dist = dist_mod.frame_distance_bidirectional(
         poses, disps, intr, ta, tb,
         beta=float(v.cfg["tracking"].get("beta", 0.3)))[0]
-    disps_up = v.disps_up
-    disps_up[kx] = up_mod.upsample_disp(disps[kx], um.float())
+    up = disps.new_zeros((0,) + tuple(v.disps_up.shape[1:]))
+    if M:
+        # upsample mask from the final hidden state, once
+        _, um = graph.tn.agg(net.permute(0, 3, 1, 2), kk, M)
+        up = up_mod.upsample_disp(disps[kx], um.float())
+    if group is not None:
+        net, target, weight, damping, up = _gather(
+            group, graph, st, net, target, weight, damping, up)
+        kx = graph._idx(st["kx_all"])
+    v.disps_up[kx] = up
 
     v.poses, v.disps = poses, disps
     v.depth_scale, v.depth_shift, v.valid_depth_mask_small = dsc, dsh, vm
@@ -185,3 +236,22 @@ def graph_update_rounds(graph, rounds: int, t0=None, t1=None, itrs=2,
     graph.net, graph.target, graph.weight = net, target, weight
     graph.age += rounds
     return float(kf_dist)
+
+
+def _gather(group, graph, st, net, target, weight, damping, up):
+    """Every rank's rows of the rounds' per-edge and per-frame results,
+    placed into whole-graph tensors (the same on every rank)."""
+    act, bounds = st["act"], st["bounds"]
+    sizes = [len(a) for a in act]
+    order = graph._idx(np.concatenate(act))
+    net_all = torch.empty_like(graph.net)
+    net_all[order] = torch.cat(group.gather_rows(net, sizes))
+    tw = torch.cat(group.gather_rows(torch.cat([target, weight], -1), sizes))
+    tw_all = torch.empty_like(tw)
+    tw_all[order] = tw
+    kx = st["kx_all"]
+    mine = graph._idx(st["kx"])
+    rows = mesh_mod.gather_frame_rows(group, bounds, kx, damping[mine])
+    damping[graph._idx(kx)] = rows
+    up = mesh_mod.gather_frame_rows(group, bounds, kx, up)
+    return net_all, tw_all[..., :2], tw_all[..., 2:], damping, up

@@ -13,7 +13,8 @@ online) the mono prior is also predicted (and cached) at every frame with
 ``tstamp % predict_every == 0``, admitted or not, so that the
 full-trajectory render evaluation finds a prior for each frame it renders;
 an admitted frame on that cadence reuses the prediction (JAX
-``motion_filter.py:65-69,135-141``).
+``motion_filter.py:65-69,135-141``). Under an edge group every rank
+encodes and probes the frame, and the admission is rank 0's.
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ import torch
 from ..geom import lie, projective
 from ..nets import droid_net
 from ..ops import corr as corr_mod
+from ..parallel import mesh as mesh_mod
 
 _BF = torch.bfloat16
 
@@ -94,7 +96,8 @@ class MotionFilter:
         if self.video.counter == 0:
             self._admit(tstamp, image, intrinsics, gmap, mono, first=True)
             return True
-        if float(delta_norm) > self.thresh:
+        if mesh_mod.from_rank0(self.video.group,
+                               float(delta_norm) > self.thresh):
             self.count = 0
             self._admit(tstamp, image, intrinsics, gmap, mono)
             return True

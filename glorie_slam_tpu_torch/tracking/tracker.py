@@ -46,6 +46,9 @@ class Tracker:
         self.checkpoint_every = int(tcfg.get("checkpoint_every", 0) or 0)
         self.checkpoint_cb = None
         self._next = None       # (index, stream, frame) read by prefetch
+        # under an edge group with a mapper: take rank 0's scale/shift rows
+        # before each frame
+        self.sync_scale_shift = False
 
     def _frame(self, stream, i):
         """(timestamp, image) of stream frame ``i``, read from the stream
@@ -62,6 +65,8 @@ class Tracker:
         i + 1, frontend, online BA every ``ba_freq`` keyframes, and the
         mapper handshake."""
         timer = self.timer
+        if self.sync_scale_shift:
+            self.video.sync_scale_shift()
         timestamp, image = self._frame(stream, i)
         with timer.phase("motion_filter"):
             self.motion_filter.track(timestamp, image,

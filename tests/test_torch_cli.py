@@ -112,6 +112,30 @@ def test_cli_resume_continues_to_the_same_end(scene, first_run, tmp_path):
     assert torch.equal(resumed.video.timestamp, first_run.video.timestamp)
 
 
+def test_cli_starts_the_ranks_that_mesh_devices_asks_for(scene, first_run,
+                                                         tmp_path):
+    """``tracking.mesh_devices: 2``: the CLI starts two CPU ranks itself
+    (gloo) and runs the scene edge-sharded; rank 0 writes the outputs,
+    which hold the one-rank run's keyframes and, loosely (random weights),
+    its poses."""
+    path, _ = scene
+    sharded = tmp_path / "sharded.yaml"
+    sharded.write_text(f"inherit_from: {path}\ntracking:\n  mesh_devices: 2"
+                       f"\n  checkpoint_every: 0\ndata:\n  output: "
+                       f"{tmp_path / 'out'}\n")
+    assert cli.main([str(sharded), *ARGS]) is None
+    out = tmp_path / "out" / "test" / "synth"
+    with open(out / "cfg.yaml") as f:
+        assert yaml.full_load(f)["tracking"]["mesh_devices"] == 2
+    video = np.load(out / "video.npz")
+    v = first_run.video
+    np.testing.assert_array_equal(video["timestamps"],
+                                  v.timestamp[:v.counter].numpy())
+    np.testing.assert_allclose(video["poses"], np.load(
+        os.path.join(scene[1], "video.npz"))["poses"], atol=5e-2)
+    assert not (out / "state.npz").exists()
+
+
 def test_cli_runs_as_a_module():
     out = subprocess.run([sys.executable, "-m", "glorie_slam_tpu_torch.cli",
                           "--help"], cwd=ROOT, capture_output=True,

@@ -1,7 +1,9 @@
 """The port never uses JAX, flax or the JAX package, and imports PyYAML,
 OpenCV, matplotlib, msgpack, PIL and wandb only inside the functions that
-need them: every module of ``glorie_slam_tpu_torch`` and ``chip_smoke``
-imports in a subprocess that blocks all of them."""
+need them: every module of ``glorie_slam_tpu_torch``, ``chip_smoke`` and
+the sharded path's drills (``tests/torch_drills.py``, which ``chip_smoke``
+and the spawned ranks import) imports in a subprocess that blocks all of
+them."""
 
 import os
 import pkgutil
@@ -33,6 +35,8 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+sys.path.insert(0, {tests!r})
+import torch_drills
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(len(names))
@@ -47,7 +51,8 @@ def _modules():
 def test_port_imports_without_jax_flax_yaml_or_jax_package():
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(
-        [sys.executable, "-c", _SCRIPT.format(blocked=BLOCKED)],
+        [sys.executable, "-c", _SCRIPT.format(blocked=BLOCKED,
+                                          tests=os.path.join(ROOT, "tests"))],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.split()[-1]) == len(_modules()) >= 20
@@ -60,7 +65,8 @@ def test_port_sources_name_no_jax_import():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|glorie_slam_tpu)\b"
                      r"|^(import|from)\s+(yaml|cv2|matplotlib|msgpack|PIL|"
                      r"wandb)\b", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "torch_drills.py")]
     for base, _, names in os.walk(os.path.dirname(
             glorie_slam_tpu_torch.__file__)):
         files += [os.path.join(base, f) for f in names if f.endswith(".py")]
@@ -110,4 +116,13 @@ def test_walk_covers_the_tools():
     names = set(_modules())
     for mod in ("tools.long_run_synthetic", "tools.mapper_schedule_run",
                 "tools.run_suite"):
+        assert f"glorie_slam_tpu_torch.{mod}" in names, mod
+
+
+def test_walk_covers_the_edge_sharding():
+    """The import check walks the edge group's modules too (the group and
+    its collectives, the launcher, the sharded step)."""
+    names = set(_modules())
+    for mod in ("parallel", "parallel.mesh", "parallel.launch",
+                "parallel.step"):
         assert f"glorie_slam_tpu_torch.{mod}" in names, mod

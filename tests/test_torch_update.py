@@ -159,3 +159,38 @@ def test_dspo_rounds_depth_scale_match_jax():
         a = n(getattr(pv, name)[:N])[same]
         b = n(getattr(jv, name)[:N])[same]
         np.testing.assert_allclose(a, b, rtol=2e-2, atol=5e-3)
+
+
+def test_filter_edges_matches_jax():
+    """``FactorGraph.filter_edges``: long-range edges (|i - j| > 2) whose
+    mean weight is under 1e-3 move to the bad list, on both sides."""
+    jn, jv, pn, pv = _videos(jnp.float32, torch.float32)
+    ii, jj = np.meshgrid(np.arange(N), np.arange(N), indexing="ij")
+    m = (ii != jj) & (np.abs(ii - jj) <= 4)
+    ii, jj = ii[m], jj[m]
+    jg = JGraph(jv, jn.update_apply, jn.params, max_factors=64,
+                agg_apply=jn.agg_apply)
+    pg = FactorGraph(pv, pn, max_factors=64)
+    jg.add_factors(ii, jj)
+    pg.add_factors(ii, jj)
+    rng = np.random.default_rng(4)
+    w = rng.random((len(ii), H // 8, W // 8, 2)).astype(np.float32)
+    w[rng.random(len(ii)) < 0.5] *= 1e-4       # half the edges unsure
+    jg.weight = jg.weight.at[:len(ii)].set(jnp.asarray(w))
+    pg.weight = t(w)
+    jg.filter_edges()
+    pg.filter_edges()
+    assert 0 < len(pg.ii_bad) < len(ii)
+    for name in ("ii", "jj", "ii_bad", "jj_bad"):
+        np.testing.assert_array_equal(getattr(pg, name),
+                                      np.asarray(getattr(jg, name)))
+    np.testing.assert_array_equal(n(pg.weight), n(jg.weight[:len(pg.ii)]))
+
+
+def test_distance_matrix_matches_jax():
+    """``DepthVideo.distance_matrix``: all-pairs bidirectional distances."""
+    _, jv, _, pv = _videos(jnp.float32, torch.float32)
+    d = pv.distance_matrix(beta=0.3)
+    assert d.shape == (N, N)
+    np.testing.assert_allclose(d, np.asarray(jv.distance_matrix(beta=0.3)),
+                               rtol=1e-4, atol=1e-5)

@@ -92,3 +92,12 @@ class SlamShim:
         os.makedirs(f"{self.output}/logs", exist_ok=True)
         self.H, self.W, self.fx, self.fy, self.cx, self.cy = update_cam(cfg)
 
+
+def fail_on_rank_1(_):
+    """An edge-group rank function (``parallel.launch``) that fails on rank
+    1 while rank 0 waits for it in a collective."""
+    from glorie_slam_tpu_torch.parallel import mesh
+
+    if mesh.active_group().rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    mesh.active_group().all_gather(torch.zeros(1))
