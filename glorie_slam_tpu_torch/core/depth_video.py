@@ -33,6 +33,7 @@ from ..ops import corr as corr_mod, depth_filter as df_mod, \
     distance as dist_mod, upsample
 from ..parallel import mesh as mesh_mod
 from ..utils.buckets import bucket
+from ..utils.phase_timer import sync
 
 
 class DepthVideo:
@@ -89,7 +90,10 @@ class DepthVideo:
     # ------------------------------------------------------------------
 
     def _t(self, x, dtype=torch.float32):
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
+        if torch.is_tensor(x) and x.device.type == self.device.type:
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
+        with sync("video_upload"):
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     def append(self, timestamp, image, pose=None, disp=None, mono_depth=None,
                intrinsics=None, fmap=None, net=None, inp=None):
@@ -97,7 +101,8 @@ class DepthVideo:
         (h8, w8, 128); mono_depth (H, W) or None."""
         ix = self.counter
         self.counter += 1
-        self.timestamp[ix] = float(timestamp)
+        with sync("scalar_write"):
+            self.timestamp[ix] = float(timestamp)
         self.images[ix] = self._t(image, torch.uint8)
         if pose is not None:
             self.poses[ix] = self._t(pose)
@@ -130,10 +135,13 @@ class DepthVideo:
         image_f = self._t(image_f)
         inputs = droid_net.normalize_images(image_f[None]).permute(0, 3, 1, 2)
         net, inp = tracker_net.context(inputs)
-        self.timestamp[ix] = float(timestamp)
+        # a number written into the card's tensor is copied there first
+        with sync("scalar_write"):
+            self.timestamp[ix] = float(timestamp)
         self.images[ix] = (image_f * 255.0).clamp(0, 255).to(torch.uint8)
         if mono_depth is None:
-            self.mono_disps[ix] = 0.0
+            with sync("scalar_write"):
+                self.mono_disps[ix] = 0.0
         else:
             self.mono_disps[ix] = self._subsample_disp(self._t(mono_depth))
         self.fmaps[ix] = gmap[0].permute(1, 2, 0).to(torch.bfloat16)
@@ -167,8 +175,9 @@ class DepthVideo:
         """Write frame ix's mono-prior scale and shift (the mapper's
         alignment)."""
         with self.state_lock:
-            self.depth_scale[ix] = s
-            self.depth_shift[ix] = q
+            with sync("scalar_write", 2):
+                self.depth_scale[ix] = s
+                self.depth_shift[ix] = q
 
     def sync_scale_shift(self):
         """Rank 0's scale/shift rows on every rank: the mapper, rank 0's
@@ -198,8 +207,9 @@ class DepthVideo:
     # ------------------------------------------------------------------
 
     def _idx(self, x):
-        return torch.as_tensor(np.asarray(x).reshape(-1), dtype=torch.long,
-                               device=self.device)
+        with sync("video_index"):
+            return torch.as_tensor(np.asarray(x).reshape(-1),
+                                   dtype=torch.long, device=self.device)
 
     def distance(self, ii, jj, beta=0.3, bidirectional=True):
         """Mean induced-flow distance for each edge -> numpy (E,)."""
@@ -208,8 +218,9 @@ class DepthVideo:
         ii, jj = self._idx(ii), self._idx(jj)
         if ii.numel() == 0:
             return np.zeros(0, np.float32)
-        return f(self.poses, self.disps, self.intrinsics, ii, jj,
-                 beta).cpu().numpy()
+        d = f(self.poses, self.disps, self.intrinsics, ii, jj, beta)
+        with sync("edge_distance"):
+            return d.cpu().numpy()
 
     def distance_matrix(self, beta=0.3):
         """All-pairs (counter x counter) bidirectional distance matrix."""
@@ -316,10 +327,11 @@ class DepthVideo:
 
         ii_t, jj_t, target_t, weight_t = ii, jj, target, weight
         if self.mono_thres:
-            avg = est.mean(dim=(1, 2)).cpu().numpy()
-            err = error_t.cpu().numpy()
-            sc = scale_t.cpu().numpy()
-            vs = valid.sum(dim=(1, 2)).cpu().numpy()
+            with sync("mono_filter", 4):
+                avg = est.mean(dim=(1, 2)).cpu().numpy()
+                err = error_t.cpu().numpy()
+                sc = scale_t.cpu().numpy()
+                vs = valid.sum(dim=(1, 2)).cpu().numpy()
             bad = ((err / avg > self.mono_thres) | ~np.isfinite(err)
                    | (sc < 0) | (vs < 0.5 * self.h8 * self.w8))
             keep = mesh_mod.from_rank0(group, ~(bad[ii] | bad[jj]))
@@ -382,13 +394,17 @@ class DepthVideo:
 
     def get_pose_c2w(self, index):
         """Frame ``index``'s 4x4 camera-to-world matrix (numpy)."""
-        return lie.to_matrix(lie.inv(self.poses[index])).cpu().numpy()
+        c2w = lie.to_matrix(lie.inv(self.poses[index]))
+        with sync("pose_to_host"):
+            return c2w.cpu().numpy()
 
     def get_depth_and_pose(self, index):
         """(depth (H, W), multiview validity (H, W), c2w (4, 4)) of frame
         ``index``, numpy."""
-        est_depth = (1.0 / self.disps_up[index].clamp(min=1e-8)).cpu().numpy()
-        mask = self.valid_depth_mask[index].cpu().numpy()
+        est_depth = 1.0 / self.disps_up[index].clamp(min=1e-8)
+        with sync("depth_to_host", 2):
+            est_depth = est_depth.cpu().numpy()
+            mask = self.valid_depth_mask[index].cpu().numpy()
         return est_depth, mask, self.get_pose_c2w(index)
 
     def save_video(self, path):

@@ -24,6 +24,7 @@ from .. import native
 from ..geom import projective
 from ..ops import corr as corr_mod
 from ..parallel import mesh as mesh_mod
+from ..utils.phase_timer import sync, traced
 
 _BF = torch.bfloat16
 EP = 1e-7          # added to the GRU's damping before every BA solve
@@ -94,7 +95,9 @@ class FactorGraph:
                            device=self.device)
 
     def _idx(self, x):
-        return torch.as_tensor(np.asarray(x, np.int64), device=self.device)
+        with sync("graph_index"):
+            return torch.as_tensor(np.asarray(x, np.int64),
+                                   device=self.device)
 
     # ------------------------------------------------------------------
     # edge management
@@ -204,7 +207,9 @@ class FactorGraph:
     def filter_edges(self):
         """Remove low-confidence long-range edges into the bad list
         (reference factor_graph.py:69-76)."""
-        conf = self.weight.mean(dim=(1, 2, 3)).cpu().numpy()
+        conf = self.weight.mean(dim=(1, 2, 3))
+        with sync("edge_weights"):
+            conf = conf.cpu().numpy()
         mask = (np.abs(self.ii - self.jj) > 2) & (conf < 0.001)
         self.ii_bad = np.concatenate([self.ii_bad, self.ii[mask]])
         self.jj_bad = np.concatenate([self.jj_bad, self.jj[mask]])
@@ -349,6 +354,7 @@ class FactorGraph:
         keep = (np.abs(ii - jj) > 0) & (np.abs(ii - jj) <= r)
         self.add_factors(ii[keep], jj[keep])
 
+    @traced("tracker.edges")
     def add_proximity_factors(self, t0=0, t1=0, rad=2, nms=2, beta=0.25,
                               thresh=16.0, remove=False, pre_rm_mask=None):
         """Distance-sorted greedy proposal with NMS (native C++).
@@ -374,6 +380,7 @@ class FactorGraph:
         elif len(n_ii):
             self.add_factors(n_ii, n_jj, remove)
 
+    @traced("tracker.edges")
     def add_backend_proximity_factors(self, t_start, t_end, nms, radius,
                                       thresh, max_factors, beta,
                                       t_start_loop=None, loop=False):

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh as mesh_mod
+from ..utils.phase_timer import sync
 from . import lie, projective
 
 
@@ -181,8 +182,9 @@ def ba(poses, disps, intrinsics, target, weight, eta, ii, jj, t0, t1, kbase,
     ii_np = np.asarray(ii, np.int64)
     jj_np = np.asarray(jj, np.int64)
     E = len(ii_np)
-    ii_t = torch.as_tensor(ii_np, device=dev)
-    jj_t = torch.as_tensor(jj_np, device=dev)
+    with sync("ba_index", 2):
+        ii_t = torch.as_tensor(ii_np, device=dev)
+        jj_t = torch.as_tensor(jj_np, device=dev)
     P1 = P_max + 1
 
     eta_win = eta[kbase:kbase + K_max].reshape(K_max, npix)
@@ -195,7 +197,8 @@ def ba(poses, disps, intrinsics, target, weight, eta, ii, jj, t0, t1, kbase,
     if group is not None:
         act = mesh_mod.rank_edges(ii_np, bounds)
         sizes = [len(a) for a in act]
-        order = torch.as_tensor(np.concatenate(act), device=dev)
+        with sync("ba_index"):
+            order = torch.as_tensor(np.concatenate(act), device=dev)
         mine = act[group.rank]
         ii_l, jj_l = ii_np[mine], jj_np[mine]
         ii_lt, jj_lt = ii_t[mine], jj_t[mine]
@@ -209,7 +212,8 @@ def ba(poses, disps, intrinsics, target, weight, eta, ii, jj, t0, t1, kbase,
                           - kbase, minlength=1).max() if E else 0
         Dmax = max(int(deg), 1)
         adj_np, mask_np = build_adjacency(ii_np, E, kbase, K_max, Dmax)
-        adj = torch.as_tensor(adj_np, device=dev)
+        with sync("ba_index"):
+            adj = torch.as_tensor(adj_np, device=dev)
         jj_pad = torch.cat([jj_t, jj_t.new_full((1,), -1)])
         ks = torch.arange(K_max, device=dev)
         slots_all = torch.cat([
@@ -220,8 +224,10 @@ def ba(poses, disps, intrinsics, target, weight, eta, ii, jj, t0, t1, kbase,
             # lists them
             adj_np, mask_np = build_adjacency(ii_l, len(ii_l), kbase, K_max,
                                               Dmax)
-            adj = torch.as_tensor(adj_np, device=dev)
-        adj_mask = torch.as_tensor(mask_np, device=dev)
+            with sync("ba_index"):
+                adj = torch.as_tensor(adj_np, device=dev)
+        with sync("ba_index"):
+            adj_mask = torch.as_tensor(mask_np, device=dev)
 
     for _ in range(iters):
         Hii, Hij, Hjj, vi, vj, Ei, Ej, Ce, wze = _edge_blocks(

@@ -9,6 +9,8 @@ dimensions; small-angle branches use ``torch.where`` with Taylor series.
 
 import torch
 
+from ..utils.phase_timer import sync
+
 _EPS = 1e-8
 
 
@@ -227,7 +229,8 @@ def to_matrix(pose):
     top = torch.cat([R, t[..., :, None]], dim=-1)
     bottom = torch.zeros(pose.shape[:-1] + (1, 4), dtype=pose.dtype,
                          device=pose.device)
-    bottom[..., 0, 3] = 1.0
+    with sync("scalar_write"):
+        bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -9,6 +9,7 @@ one shared ``[fx, fy, cx, cy]`` tensor.
 
 import torch
 
+from ..utils.phase_timer import sync
 from . import lie
 
 MIN_DEPTH = 0.2
@@ -50,7 +51,8 @@ def proj(Xs, intrinsics, return_depth=False):
 def rel_poses(poses, ii, jj):
     """Per-edge G_ij = T_jj ∘ T_ii^-1, with the stereo transform on ii == jj."""
     Gij = lie.rel(poses[ii], poses[jj])
-    stereo = torch.tensor(_STEREO, dtype=Gij.dtype, device=Gij.device)
+    with sync("stereo_pose"):
+        stereo = torch.tensor(_STEREO, dtype=Gij.dtype, device=Gij.device)
     return torch.where((ii == jj)[:, None], stereo, Gij)
 
 

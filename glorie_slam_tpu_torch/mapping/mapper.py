@@ -43,6 +43,7 @@ import torch
 from ..geom import alignment, lie
 from ..utils import eval_render
 from ..utils.buckets import bucket
+from ..utils.phase_timer import span, sync, traced
 from ..utils.visualizer import Visualizer
 from . import sampling
 from .decoders import PointDecoders
@@ -68,10 +69,12 @@ def pix_warping_loss(rays_o, rays_d, depth, gt_color, ray_frame_slot,
     fx, fy, cx, cy = intr
     F = c2ws.shape[0]
     pts = rays_o + rays_d * depth[:, None]                       # (R, 3)
-    w2cs = torch.linalg.inv(c2ws)
+    with sync("pose_inverse"):
+        w2cs = torch.linalg.inv(c2ws)
     cam = (torch.einsum("fij,rj->fri", w2cs[:, :3, :3], pts)
            + w2cs[:, None, :3, 3])
-    cam = cam * cam.new_tensor(_X_FLIP)                          # x flip
+    with sync("x_flip"):
+        cam = cam * cam.new_tensor(_X_FLIP)                      # x flip
     z = cam[..., 2]
     u = fx * cam[..., 0] / (z + 1e-6) + cx
     v = fy * cam[..., 1] / (z + 1e-6) + cy
@@ -135,7 +138,10 @@ def _map_train_step(decoders, rcfg, opt, geo, col, lrs, cloud_pos, count,
                                      ray_frame_slot, frame_valid, c2ws,
                                      img_colors, intr, Wi, Hi)
         loss = loss + w_warp * warp_loss
-    loss.backward()
+    # the backward synchronizes once, inside; its span holds the
+    # backward's dispatch as well
+    with sync("backward"):
+        loss.backward()
     geo.grad.mul_(feat_mask)
     col.grad.mul_(feat_mask)
     for name, p in decoders.named_parameters():
@@ -233,7 +239,9 @@ class Mapper:
         self.printer.print(msg, subsystem=sub)
 
     def _t(self, x, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+        with sync("map_upload"):
+            return torch.as_tensor(np.asarray(x), dtype=dtype,
+                                   device=self.device)
 
     def _c2w_nerf(self, video_idx):
         """Estimated c2w in the NeRF convention (y and z flipped)."""
@@ -274,7 +282,8 @@ class Mapper:
         scale, shift, _ = alignment.align_scale_and_shift(
             self._t(mono_depth)[None], self._t(est_depth)[None],
             self._t((mono_valid & valid_mask).astype(np.float32))[None])
-        s, q = float(scale[0]), float(shift[0])
+        with sync("prior_scale", 2):
+            s, q = float(scale[0]), float(shift[0])
         if not np.isfinite(s):
             s, q = 1.0, 0.0
         self.video.set_depth_scale_shift(video_idx, s, q)
@@ -322,7 +331,9 @@ class Mapper:
         i, j, d, _ = sampling.sample_pixels(
             self.rng, pixels, H, W, cur_depth, np.zeros((H, W, 3), np.float32),
             cur_depth > 0)
-        rays_o, rays_d = (r.cpu().numpy() for r in self._rays(i, j, cur_c2w))
+        with sync("rays_to_host", 2):
+            rays_o, rays_d = (r.cpu().numpy()
+                              for r in self._rays(i, j, cur_c2w))
         t = np.linspace(0.0, 1.0, N_samples)
         near = d[:, None] * 0.8
         far = d[:, None] + 0.5
@@ -356,7 +367,8 @@ class Mapper:
         over the valid points, as in the JAX package."""
         H, W = self.H, self.W
         n = self.npc.count
-        pts = self.npc.cloud_pos[:n].cpu().numpy()
+        with sync("cloud_to_host"):
+            pts = self.npc.cloud_pos[:n].cpu().numpy()
         w2c = np.linalg.inv(c2w)
         cam = pts @ w2c[:3, :3].T + w2c[:3, 3]
         cam[:, 0] *= -1
@@ -414,22 +426,27 @@ class Mapper:
                 if self.render_depth_type == "proxy":
                     render_depth = self.npc.get_proxy_render_depth(
                         c2w, droid_depth, mono_wq,
-                        use_mono_to_complete=self.use_mono_to_complete
-                    ).cpu().numpy()
+                        use_mono_to_complete=self.use_mono_to_complete)
+                    with sync("depth_to_host"):
+                        render_depth = render_depth.cpu().numpy()
                     render_mask = render_depth > 0
                 else:
-                    render_depth = mono_wq.cpu().numpy()
+                    with sync("depth_to_host"):
+                        render_depth = mono_wq.cpu().numpy()
                     render_mask = np.ones((self.H, self.W), bool)
                 gt_color = kf["color"]
                 r_query = self.r_query_store.get(kf["idx"])
                 if r_query is not None:
                     r_query = r_query / 3.0 * render_depth
-                c2w = c2w.cpu().numpy()
+                with sync("pose_to_host"):
+                    c2w = c2w.cpu().numpy()
             else:
                 if color_refine:
                     continue
                 render_depth, render_mask = cur_depth, cur_depth > 0
-                gt_color, c2w = cur_gt_color, cur_c2w.cpu().numpy()
+                gt_color = cur_gt_color
+                with sync("pose_to_host"):
+                    c2w = cur_c2w.cpu().numpy()
                 r_query = cur_r_query
             frames.append(dict(render_depth=render_depth,
                                render_mask=render_mask, gt_color=gt_color,
@@ -485,14 +502,16 @@ class Mapper:
         cur_gt_color numpy; cur_c2w a device tensor."""
         cur_r_query = (self.dynamic_r_query / 3.0 * cur_depth
                        if self.use_dynamic_radius else None)
-        frames = self._window_frames(color_refine, cur_depth, cur_gt_color,
-                                     cur_c2w, cur_r_query)
+        with span("mapper.window_frames"):
+            frames = self._window_frames(color_refine, cur_depth,
+                                         cur_gt_color, cur_c2w, cur_r_query)
         if not frames:
             return
         pixs_per_image = self.mapping_pixels // len(frames)
         if self.frustum_feature_selection and not color_refine:
-            feat_mask = self._frustum_grad_mask(cur_c2w.cpu().numpy(),
-                                                cur_depth)
+            with sync("pose_to_host"):
+                c2w_np = cur_c2w.cpu().numpy()
+            feat_mask = self._frustum_grad_mask(c2w_np, cur_depth)
         else:
             feat_mask = self._live_mask()
         fix_color = True if color_refine else self.fix_color_decoder
@@ -523,24 +542,29 @@ class Mapper:
                 lr_cfg = self.cfg["mapping"][stage_name][sub]
                 lrs = (lr_cfg["decoders_lr"], lr_cfg["geometry_lr"],
                        lr_cfg["color_lr"])
-                (rays_o, rays_d, depth_b, color_b, rq_b, inside,
-                 slot_b) = self._ray_batch(frames, pixs_per_image, c2ws,
-                                           R_total)
-                metrics = _map_train_step(
-                    self.decoders, self.rcfg, opt, geo, col, lrs,
-                    self.npc.cloud_pos, self.npc.count, rays_o, rays_d,
-                    depth_b, color_b, rq_b, inside, slot_b, frame_valid,
-                    c2ws, img_colors, feat_mask, dec_mask, intr,
-                    self.w_losses, stage, self.pix_warping, self.W, self.H)
+                with span("mapper.ray_batch"):
+                    (rays_o, rays_d, depth_b, color_b, rq_b, inside,
+                     slot_b) = self._ray_batch(frames, pixs_per_image, c2ws,
+                                               R_total)
+                with span("mapper.train_step"):
+                    metrics = _map_train_step(
+                        self.decoders, self.rcfg, opt, geo, col, lrs,
+                        self.npc.cloud_pos, self.npc.count, rays_o, rays_d,
+                        depth_b, color_b, rq_b, inside, slot_b, frame_valid,
+                        c2ws, img_colors, feat_mask, dec_mask, intr,
+                        self.w_losses, stage, self.pix_warping, self.W,
+                        self.H)
                 if it % 20 == 0 or it == num_joint_iters - 1:
+                    with sync("map_loss", 2):
+                        losses = {"geo": float(metrics["geo_loss"]),
+                                  "color": float(metrics["color_loss"])}
                     self.loss_history.append({
                         "idx": int(cur_idx), "iter": it, "stage": sub,
-                        "refine": bool(color_refine),
-                        "geo": float(metrics["geo_loss"]),
-                        "color": float(metrics["color_loss"])})
+                        "refine": bool(color_refine), **losses})
                 if it % 100 == 0 and not self.printer.silence:
-                    self._print(f"iter {it}: geo_loss "
-                                f"{float(metrics['geo_loss']):.5f}")
+                    with sync("map_loss"):
+                        geo_loss = float(metrics["geo_loss"])
+                    self._print(f"iter {it}: geo_loss {geo_loss:.5f}")
         finally:
             release(self.decoders, geo, col)
         self._print("Mapper has updated point features.")
@@ -586,8 +610,9 @@ class Mapper:
                              torch.zeros_like(disps_up))
         c2ws = lie.to_matrix(lie.inv(v.poses[:n])).clone()
         c2ws[:, :3, 1:3] *= -1
-        self.npc.deform(depths, c2ws,
-                        torch.as_tensor(dirty[:n], device=self.device))
+        with sync("map_upload"):
+            dirty_d = torch.as_tensor(dirty[:n], device=self.device)
+        self.npc.deform(depths, c2ws, dirty_d)
         self.npc.add_points(v, dirty_idx)
 
     def mapping_keyframe(self, idx, video_idx, mono_depth, outer_iters,
@@ -605,12 +630,15 @@ class Mapper:
         # for the visualizer's re-render after the optimisation
         self._cur_video_idx, self._cur_mono = video_idx, mono_depth
         if self.render_depth_type == "proxy":
-            anchor_depth = droid_depth.cpu().numpy()
+            with sync("depth_to_host"):
+                anchor_depth = droid_depth.cpu().numpy()
             if depth_wq is not None:
                 inv = anchor_depth == 0
-                anchor_depth[inv] = depth_wq.cpu().numpy()[inv]
+                with sync("depth_to_host"):
+                    anchor_depth[inv] = depth_wq.cpu().numpy()[inv]
         else:
-            anchor_depth = depth_wq.cpu().numpy()
+            with sync("depth_to_host"):
+                anchor_depth = depth_wq.cpu().numpy()
         if self.use_dynamic_radius:
             self.dynamic_r_add = self.dynamic_r_add / 3.0 * anchor_depth
         frame_pts_add = 0
@@ -625,7 +653,8 @@ class Mapper:
             render_depth = depth_wq
         if color_refine and idx in self.r_query_store:
             self.dynamic_r_query = self.r_query_store[idx]
-        render_depth = render_depth.cpu().numpy()
+        with sync("depth_to_host"):
+            render_depth = render_depth.cpu().numpy()
         for _ in range(outer_iters):
             self.optimize_map(num_joint_iters, idx, render_depth, gt_color,
                               frame_pts_add, cur_c2w, init,
@@ -633,6 +662,7 @@ class Mapper:
         return True
 
     # ------------------------------------------------------------------
+    @traced("mapper.on_keyframe")
     def on_keyframe(self, frame_info):
         """The tracker's keyframe handshake (reference mapper.py:742-814)."""
         if frame_info.get("end"):

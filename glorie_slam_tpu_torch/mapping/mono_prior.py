@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.phase_timer import span, sync
 from .dpt import DPTDepthModel
 
 
@@ -64,7 +65,8 @@ class MonoDepthEstimator:
         s = self.infer_size
         x = resize(img.permute(2, 0, 1), (s, s), "bilinear")
         x = (x - 0.5) / 0.5
-        depth = self.model(x[None])[0].clamp(0.0, 1.0)
+        with span("mono_prior.dpt"):
+            depth = self.model(x[None])[0].clamp(0.0, 1.0)
         # bicubic overshoots; the reference clamps again
         # (mono_estimators.py:48-50)
         return resize(depth, (H, W), "bicubic").clamp(0.0, 1.0)
@@ -79,7 +81,10 @@ class MonoDepthEstimator:
         if self.write_cache:
             # written whole under a temporary name, then renamed: other
             # ranks of an edge group read the cache while rank 0 writes
-            tmp = f"{path}.{os.getpid()}.tmp.npy"
-            np.save(tmp, depth.cpu().numpy())
-            os.replace(tmp, path)
+            with span("mono_prior.cache_write"):
+                tmp = f"{path}.{os.getpid()}.tmp.npy"
+                with sync("prior_to_host"):
+                    depth_np = depth.cpu().numpy()
+                np.save(tmp, depth_np)
+                os.replace(tmp, path)
         return depth

@@ -28,8 +28,18 @@ import torch
 
 from ..geom import projective
 from ..ops import knn as knn_mod
+from ..utils.phase_timer import sync
 
 TILE = knn_mod.TILE
+
+
+def _f32(x, device):
+    """``x`` as a float32 tensor on ``device``: a number is copied there
+    from the host."""
+    if torch.is_tensor(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    with sync("number_upload"):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 def linspace(start, stop, num, device=None):
@@ -37,8 +47,7 @@ def linspace(start, stop, num, device=None):
     ``jnp.linspace`` rounds them: start * (1 - s) + stop * s with
     s = iota / (num - 1), and stop itself last. ``start`` and ``stop`` may
     be numbers or 0-d tensors."""
-    start = torch.as_tensor(start, dtype=torch.float32, device=device)
-    stop = torch.as_tensor(stop, dtype=torch.float32, device=device)
+    start, stop = _f32(start, device), _f32(stop, device)
     if num == 1:
         return start.reshape(1)
     div = num - 1
@@ -154,7 +163,8 @@ class NeuralPointCloud:
         full-resolution cloud with their validity masks (reference
         neural_point.py:145-162); returns how many pixels are valid."""
         idx_np = np.atleast_1d(np.asarray(video_idxs, np.int64))
-        idx = torch.as_tensor(idx_np, device=self.device)
+        with sync("cloud_index"):
+            idx = torch.as_tensor(idx_np, device=self.device)
         intr = video.intrinsics * float(video.down_scale)
         pts = projective.iproj_world(video.poses[idx], video.disps_up[idx],
                                      intr)
@@ -162,14 +172,16 @@ class NeuralPointCloud:
         self.full_pcl[idx] = pts.to(torch.bfloat16)
         self.full_mask[idx] = mask
         self.n_frames = max(self.n_frames, int(idx_np.max()) + 1)
-        return int(mask.sum())
+        with sync("cloud_count"):
+            return int(mask.sum())
 
     # ------------------------------------------------------------------
     def _draw_features(self, n):
         """(geo, col) initial features (n, c_dim): 0.1 * N(0, 1)."""
         g = torch.randn((n, self.c_dim), generator=self.generator)
         c = torch.randn((n, self.c_dim), generator=self.generator)
-        return (0.1 * g).to(self.device), (0.1 * c).to(self.device)
+        with sync("feature_upload", 2):
+            return (0.1 * g).to(self.device), (0.1 * c).to(self.device)
 
     def add_neural_points(self, rays_o, rays_d, gt_depth, gt_color,
                           video_idx, i, j, is_pts_grad=False,
@@ -189,12 +201,14 @@ class NeuralPointCloud:
                                            is_pts_grad=is_pts_grad,
                                            dynamic_radius=dynamic_radius)
             mask = mask & (nn == 0)
-        sel = np.flatnonzero(mask.cpu().numpy())
+        with sync("anchor_mask"):
+            sel = np.flatnonzero(mask.cpu().numpy())
         n_new = min(len(sel), self.cap_in - self.count_in)
         if n_new <= 0:
             return 0
         sel = sel[:n_new]
-        sel_d = torch.as_tensor(sel, device=self.device)
+        with sync("cloud_index"):
+            sel_d = torch.as_tensor(sel, device=self.device)
 
         a = slice(self.count_in, self.count_in + n_new)
         self.input_pos[a] = pts_gt[sel_d]
@@ -202,10 +216,11 @@ class NeuralPointCloud:
         self.input_depth[a] = gt_depth[sel_d]
         self.input_video_idx[a] = int(video_idx)
         self.max_video_idx = max(self.max_video_idx, int(video_idx))
-        self.input_i[a] = torch.as_tensor(np.asarray(i, np.int32)[sel],
-                                          device=self.device)
-        self.input_j[a] = torch.as_tensor(np.asarray(j, np.int32)[sel],
-                                          device=self.device)
+        with sync("cloud_index", 2):
+            self.input_i[a] = torch.as_tensor(np.asarray(i, np.int32)[sel],
+                                              device=self.device)
+            self.input_j[a] = torch.as_tensor(np.asarray(j, np.int32)[sel],
+                                              device=self.device)
         self.count_in += n_new
 
         # N_add points along each selected ray in
@@ -297,7 +312,8 @@ class NeuralPointCloud:
                 n = min(n, max(int(exclude_recent_from), 0))
             points = self.full_pcl[:n].reshape(-1, 3).float()
             valid = self.full_mask[:n].reshape(-1)
-        w2c = torch.linalg.inv(c2w)
+        with sync("pose_inverse"):
+            w2c = torch.linalg.inv(c2w)
         cam = points @ w2c[:3, :3].T + w2c[:3, 3]
         cx_ = -cam[:, 0]                                # x flip
         z = cam[:, 2] + 1e-6

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import knn as knn_mod
+from ..utils.phase_timer import sync
 from .point_cloud import linspace
 
 PROBES = 25
@@ -120,8 +121,9 @@ def render_rays(rcfg, decoders, rays_o, rays_d, gt_depth, cloud_pos, count,
         if rcfg.use_dynamic_radius and dynamic_r_query is not None:
             r_q = dynamic_r_query.reshape(-1).repeat_interleave(S)[:, None] ** 2
         else:
-            r_q = torch.tensor(rcfg.radius_query, dtype=torch.float32,
-                               device=dev) ** 2
+            with sync("number_upload"):
+                r_q = torch.tensor(rcfg.radius_query, dtype=torch.float32,
+                                   device=dev) ** 2
         D, I = knn_mod.knn_search(pts_flat, cloud_pos, count, k=rcfg.nn_num)
         nn = torch.sum(D < r_q, dim=-1).to(torch.int32)
     views_d = rays_d.repeat_interleave(S, dim=0)

@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.phase_timer import sync
+
 DIM = 32
 CORR_PLANES = 4 * (2 * 3 + 1) ** 2
 
@@ -26,8 +28,9 @@ IMAGE_STD = (0.229, 0.224, 0.225)
 
 def normalize_images(images):
     """images (..., H, W, 3) in [0, 1] -> ImageNet-normalized."""
-    mean = images.new_tensor(IMAGE_MEAN)
-    std = images.new_tensor(IMAGE_STD)
+    with sync("image_norm", 2):
+        mean = images.new_tensor(IMAGE_MEAN)
+        std = images.new_tensor(IMAGE_STD)
     return (images - mean) / std
 
 

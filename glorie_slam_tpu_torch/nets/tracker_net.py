@@ -13,6 +13,7 @@ for example from ``import_flax.flax_params_to_state_dict``, and
 import torch
 
 from ..device import resolve_device
+from ..utils.phase_timer import span
 from .droid_net import DroidNet
 from .import_torch import load_droid_checkpoint
 
@@ -41,24 +42,28 @@ class TrackerNet:
 
     def features(self, images):
         """images (B, 3, H, W) normalized -> fmaps (B, 128, H/8, W/8)."""
-        return self.model.features(images.to(self.dtype))
+        with span("net.fnet"):
+            return self.model.features(images.to(self.dtype))
 
     def context(self, images):
         """images (B, 3, H, W) -> (net (B,128,h,w) tanh, inp relu)."""
-        return self.model.context(images.to(self.dtype))
+        with span("net.cnet"):
+            return self.model.context(images.to(self.dtype))
 
     def update(self, net, inp, corr, flow=None, kk=None, num_frames=0,
                with_upmask=True):
         d = self.dtype
-        return self.model.update(
-            net.to(d), inp.to(d), corr.to(d),
-            None if flow is None else flow.to(d), kk, num_frames,
-            with_upmask=with_upmask)
+        with span("net.update"):
+            return self.model.update(
+                net.to(d), inp.to(d), corr.to(d),
+                None if flow is None else flow.to(d), kk, num_frames,
+                with_upmask=with_upmask)
 
     def agg(self, net, kk, num_frames):
         """GraphAgg alone on a hidden state -> (eta, upmask)."""
-        return self.model.update.agg(net.to(self.dtype), kk, num_frames,
-                                     with_upmask=True)
+        with span("net.agg"):
+            return self.model.update.agg(net.to(self.dtype), kk, num_frames,
+                                         with_upmask=True)
 
 
 def _random_init(model, gen):

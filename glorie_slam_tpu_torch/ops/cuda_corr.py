@@ -41,6 +41,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import build
+from ..utils.phase_timer import span
 
 RADIUS = 3
 LEVELS = 4
@@ -150,9 +151,15 @@ def lookup_pyramid(f1, f2_levels, iis, jjs, coords):
     viewed as (N, h0, w0, 128); iis/jjs: (E,) int32 source/target frames;
     coords: (E, npix, 2) float32 level-0 [x, y] (NaN -> 0).
     Returns (E, npix, 196) bf16, channel = l*49 + a*7 + b (a: x offset).
+    On the card the call runs inside span ``cuda.lookup_pyramid``.
     """
     if f1.device.type == "cpu":
         return lookup_pyramid_plain(f1, f2_levels, iis, jjs, coords)
+    with span("cuda.lookup_pyramid"):
+        return _lookup_pyramid_cuda(f1, f2_levels, iis, jjs, coords)
+
+
+def _lookup_pyramid_cuda(f1, f2_levels, iis, jjs, coords):
     if f1.device.type != "cuda":
         raise ValueError(f"lookup_pyramid: unsupported device {f1.device}")
     N, npix, C = f1.shape
@@ -308,10 +315,16 @@ def depth_agree(dmaps, jxs, cu):
     dmaps: (N, ht, wd) float32 disparity maps; jxs: (M, 6) int32 neighbour
     frame of each source frame; cu: (M, 24, npix) float32 packed per
     neighbour k as rows [u, v, 1/projected disparity, thresh] at 4k..4k+3.
-    Returns (M, 6, npix) float32 of exact 0/1.
+    Returns (M, 6, npix) float32 of exact 0/1. On the card the call runs
+    inside span ``cuda.depth_agree``.
     """
     if dmaps.device.type == "cpu":
         return depth_agree_plain(dmaps, jxs, cu)
+    with span("cuda.depth_agree"):
+        return _depth_agree_cuda(dmaps, jxs, cu)
+
+
+def _depth_agree_cuda(dmaps, jxs, cu):
     if dmaps.device.type != "cuda":
         raise ValueError(f"depth_agree: unsupported device {dmaps.device}")
     N, ht, wd = dmaps.shape

@@ -12,6 +12,7 @@ package's two paths compute the same function).
 import torch
 
 from ..geom import lie, projective
+from ..utils.phase_timer import sync
 from . import cuda_corr
 
 NEIGH_OFFSETS = (-1, -2, -3, 3, 4, 5)
@@ -26,7 +27,9 @@ def pack_agreement_inputs(poses, disps, intrinsics, inds, thresh):
     npix = ht * wd
     fx, fy, cx, cy = intrinsics.unbind(-1)
     M = inds.shape[0]
-    offs = torch.tensor(NEIGH_OFFSETS, dtype=torch.long, device=disps.device)
+    with sync("neighbour_offsets"):
+        offs = torch.tensor(NEIGH_OFFSETS, dtype=torch.long,
+                            device=disps.device)
     ix = inds.long()
     jx = ix[:, None] + offs[None, :]
     in_range = (jx >= 0) & (jx < N)

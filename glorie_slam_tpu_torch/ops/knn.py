@@ -30,6 +30,8 @@ the index of each in turn.
 
 import torch
 
+from ..utils.phase_timer import count, sync, traced
+
 NN_NUM = 8
 BIG = 1e12
 TILE = 8192
@@ -47,12 +49,14 @@ def sq_norm(x):
     return acc
 
 
+@traced("knn.search")
 def knn_search(queries, points, n_valid, k: int = NN_NUM, tile: int = TILE):
     """queries (Q, 3); points (P_cap, 3) padded cloud; n_valid: host count.
 
     Returns (D (Q, k) squared distances ascending, I (Q, k) int64 indices);
     slots past the valid points read ``BIG`` (their indices are arbitrary
-    in-range slots, so callers' radius tests exclude them)."""
+    in-range slots, so callers' radius tests exclude them). Counter
+    ``knn.tiles`` adds the tiles scanned."""
     if queries.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("knn_search needs float32 matmuls; TF32 is on "
                            "(glorie_slam_tpu_torch.device."
@@ -64,6 +68,7 @@ def knn_search(queries, points, n_valid, k: int = NN_NUM, tile: int = TILE):
                          f"tile size {tile}")
     n_valid = int(n_valid)
     n_scan = min(P, max(1, -(-n_valid // tile)) * tile)
+    count("knn.tiles", n_scan // tile)
     pts = points[:n_scan].float()
     p2 = sq_norm(pts)
     invalid = torch.arange(n_scan, device=pts.device) >= n_valid
@@ -103,6 +108,10 @@ def neighbor_count(D, radius):
     """Neighbours within ``radius`` (a number or a per-query (Q,) tensor),
     comparing squared distances as FAISS does -> (Q,) int32. The square
     is taken in float32, as in the JAX package."""
-    r = torch.as_tensor(radius, dtype=torch.float32, device=D.device)
+    if torch.is_tensor(radius):
+        r = torch.as_tensor(radius, dtype=torch.float32, device=D.device)
+    else:
+        with sync("number_upload"):
+            r = torch.as_tensor(radius, dtype=torch.float32, device=D.device)
     r2 = r[:, None] ** 2 if r.dim() > 0 else r * r
     return torch.sum(D < r2, dim=-1).to(torch.int32)

@@ -10,6 +10,7 @@ rounds. Under an edge group the keyframe-distance decision is rank 0's.
 from ..core.factor_graph import FactorGraph
 from ..parallel import mesh as mesh_mod
 from .backend import Backend
+from ..utils.phase_timer import span
 from .fused import graph_update_rounds
 
 
@@ -61,9 +62,10 @@ class Frontend:
         else:
             ran_loop = False
             if self.enable_loop and cur_t > self.frontend_window:
-                _, n_edge = self.loop_closing.loop_ba(
-                    t_start=0, t_end=cur_t, steps=self.iters2,
-                    local_graph=g, enable_wq=True)
+                with span("tracker.loop_closure"):
+                    _, n_edge = self.loop_closing.loop_ba(
+                        t_start=0, t_end=cur_t, steps=self.iters2,
+                        local_graph=g, enable_wq=True)
                 ran_loop = n_edge > 0
                 self.last_loop_t = cur_t
             if not ran_loop:

@@ -39,6 +39,9 @@ from ..geom import alignment, ba as ba_mod
 from ..ops import distance as dist_mod, upsample as up_mod
 from ..parallel import mesh as mesh_mod
 from ..utils.buckets import bucket
+from ..utils.phase_timer import count, span, sync, traced
+
+_ROUND_SPANS = ("tracker.round.pose_depth", "tracker.round.depth_scale")
 
 
 def _stable_caps(graph):
@@ -80,7 +83,10 @@ def _assemble(graph, t0_arg, t1_arg, use_inactive):
     K_ds = min(max(bucket(int(ii_ba.max()) + 1 - int(ii_ba.min())),
                    span_cap), v.buffer)
     frame_mask = torch.zeros(v.buffer, dtype=torch.bool, device=v.device)
-    frame_mask[graph._idx(np.unique(ii_ba))] = True
+    # a value written through an index tensor is copied to the card first
+    kept = graph._idx(np.unique(ii_ba))
+    with sync("mask_write"):
+        frame_mask[kept] = True
     st = dict(t0=t0, t1=t1, ii_ba=ii_ba, jj_ba=jj_ba, kbase_pd=kbase_pd,
               K_pd=K_pd, P_max=P_max, K_ds=K_ds, frame_mask=frame_mask,
               kx_all=np.unique(graph.ii), bounds=None, act=None,
@@ -105,6 +111,7 @@ def _assemble(graph, t0_arg, t1_arg, use_inactive):
     return st
 
 
+@traced("tracker.update_rounds")
 def graph_update_rounds(graph, rounds: int, t0=None, t1=None, itrs=2,
                         use_inactive=True, alternate=True,
                         lm=1e-4, ep=0.1):
@@ -112,7 +119,9 @@ def graph_update_rounds(graph, rounds: int, t0=None, t1=None, itrs=2,
     into the graph and its video. Rounds alternate pose_depth (even) and
     depth_scale (odd) when ``alternate`` and the video's BA_type is DSPO.
     Returns the keyframe distance d(t1-2, t1-1) (float), or None for an
-    empty graph."""
+    empty graph. Each round runs inside span ``tracker.round.<kind>``;
+    counters ``tracker.rounds`` and ``tracker.ba_edges`` add one and the
+    BA's edges per round."""
     if len(graph.ii) == 0:
         return None
     v = graph.video
@@ -144,78 +153,95 @@ def graph_update_rounds(graph, rounds: int, t0=None, t1=None, itrs=2,
     damping = graph.damping.clone()
 
     def run_pd(poses, disps, wgt, eta_f):
-        p2, d2 = ba_mod.ba(
-            poses, disps, intr, tgt_comb, wgt, eta_f, st["ii_ba"],
-            st["jj_ba"], t0, t1, st["kbase_pd"], P_max=st["P_max"],
-            K_max=st["K_pd"], iters=itrs, lm=lm, ep=ep, refine=0,
-            group=group, bounds=bounds)
-        return p2, d2.clamp(min=1e-5)
+        with span("tracker.ba"):
+            p2, d2 = ba_mod.ba(
+                poses, disps, intr, tgt_comb, wgt, eta_f, st["ii_ba"],
+                st["jj_ba"], t0, t1, st["kbase_pd"], P_max=st["P_max"],
+                K_max=st["K_pd"], iters=itrs, lm=lm, ep=ep, refine=0,
+                group=group, bounds=bounds)
+            return p2, d2.clamp(min=1e-5)
 
+    n_ba = len(st["ii_ba"])
     for r in range(rounds):
         is_ds = dspo_on and r % 2 == 1
-        net, target, weight, eta, _, _ = graph_update_step(
-            graph.tn, poses, disps, intr, feat_pyr, net, inp, target,
-            ii_act, jj_act, kk, graph.coords0, M, with_upmask=False)
-        damping[kx] = eta
-        eta_val = 0.2 * damping + EP
-        eta_full = torch.where(st["frame_mask"][:, None, None], eta_val,
-                               torch.full_like(eta_val, 1e-7))
-        tgt_comb = torch.cat([st["tgt_in"], target])
-        wgt_comb = torch.cat([st["wgt_in"], weight])
-        if not is_ds:
-            poses, disps = run_pd(poses, disps, wgt_comb, eta_full)
-            continue
+        count("tracker.rounds")
+        count("tracker.ba_edges", n_ba)
+        with span(_ROUND_SPANS[is_ds]):
+            with span("tracker.gru"):
+                net, target, weight, eta, _, _ = graph_update_step(
+                    graph.tn, poses, disps, intr, feat_pyr, net, inp, target,
+                    ii_act, jj_act, kk, graph.coords0, M, with_upmask=False)
+            damping[kx] = eta
+            eta_val = 0.2 * damping + EP
+            eta_full = torch.where(st["frame_mask"][:, None, None], eta_val,
+                                   torch.full_like(eta_val, 1e-7))
+            tgt_comb = torch.cat([st["tgt_in"], target])
+            wgt_comb = torch.cat([st["wgt_in"], weight])
+            if not is_ds:
+                poses, disps = run_pd(poses, disps, wgt_comb, eta_full)
+                continue
 
-        M_cur = st["K_ds"]
-        base = max(t1 - M_cur, 0)
-        idx_np = np.arange(base, base + M_cur)
-        idx_np = np.where(idx_np < v.counter, idx_np, 0)
-        idx = graph._idx(idx_np)
-        vm[idx] = valid_mask_update(poses, disps, intr, idx, mv_thresh,
-                                    visible_num)
-        est = disps[idx]
-        valid = vm[idx].float()
-        scale_t, shift_t, error_t = alignment.align_scale_and_shift(
-            v.mono_disps[idx], est, valid)
-        okf = torch.isfinite(scale_t) & torch.isfinite(shift_t)
-        scale_t = torch.where(okf, scale_t, torch.ones_like(scale_t))
-        shift_t = torch.where(okf, shift_t, torch.zeros_like(shift_t))
-        dsc[idx] = scale_t
-        dsh[idx] = shift_t
+            with span("tracker.realign"):
+                M_cur = st["K_ds"]
+                base = max(t1 - M_cur, 0)
+                idx_np = np.arange(base, base + M_cur)
+                idx_np = np.where(idx_np < v.counter, idx_np, 0)
+                idx = graph._idx(idx_np)
+                vm[idx] = valid_mask_update(poses, disps, intr, idx,
+                                            mv_thresh, visible_num)
+                est = disps[idx]
+                valid = vm[idx].float()
+                scale_t, shift_t, error_t = alignment.align_scale_and_shift(
+                    v.mono_disps[idx], est, valid)
+                okf = torch.isfinite(scale_t) & torch.isfinite(shift_t)
+                scale_t = torch.where(okf, scale_t, torch.ones_like(scale_t))
+                shift_t = torch.where(okf, shift_t,
+                                      torch.zeros_like(shift_t))
+                dsc[idx] = scale_t
+                dsh[idx] = shift_t
 
-        if mono_thres:
-            avg = est.mean(dim=(1, 2))
-            vs = valid.sum(dim=(1, 2))
-            bad_w = ((error_t / avg > mono_thres) | ~torch.isfinite(error_t)
-                     | (scale_t < 0) | (vs < 0.5 * v.h8 * v.w8))
-            bad = torch.zeros(Nbuf, dtype=torch.bool, device=dev)
-            bad[idx] = bad_w
-            keep_e = (~bad[ii_ba_d] & ~bad[jj_ba_d]).cpu().numpy()
-            keep_e = mesh_mod.from_rank0(group, keep_e)
-        else:
-            keep_e = np.ones(len(st["ii_ba"]), bool)
-        if not (keep_e.any() and v.counter > 0):
-            poses, disps = run_pd(poses, disps, wgt_comb, eta_full)
-            continue
-        ii_ds = np.where(keep_e, st["ii_ba"], -1)
-        haskept = torch.zeros(Nbuf, dtype=torch.bool, device=dev)
-        haskept[graph._idx(ii_ds[keep_e])] = True
-        eta_ds = torch.where(haskept[:, None, None], eta_val,
-                             torch.full_like(eta_val, 1e-7))
-        kbase_ds = int(np.clip(ii_ds[keep_e].min(), 0, Nbuf - M_cur))
-        if group is not None:
-            keep_e, ii_ds = keep_e[st["ba_own"]], ii_ds[st["ba_own"]]
-        keep_d = torch.as_tensor(keep_e, device=dev)
-        wgt_ds = wgt_comb * keep_d[:, None, None, None].to(wgt_comb.dtype)
-        disps, dsc, dsh = ba_mod.ba_scale_shift(
-            poses, disps, intr, tgt_comb, wgt_ds, eta_ds, v.mono_disps,
-            dsc, dsh, vm, graph._idx(ii_ds), graph._idx(st["jj_ba_l"]),
-            kbase_ds, K_max=M_cur, iters=itrs, lm=lm, ep=ep, alpha=0.01,
-            group=group, bounds=bounds)
-        disps = disps.clamp(min=1e-5)
+                if mono_thres:
+                    avg = est.mean(dim=(1, 2))
+                    vs = valid.sum(dim=(1, 2))
+                    bad_w = ((error_t / avg > mono_thres)
+                             | ~torch.isfinite(error_t)
+                             | (scale_t < 0) | (vs < 0.5 * v.h8 * v.w8))
+                    bad = torch.zeros(Nbuf, dtype=torch.bool, device=dev)
+                    bad[idx] = bad_w
+                    keep_e = ~bad[ii_ba_d] & ~bad[jj_ba_d]
+                    with sync("keep_edges"):
+                        keep_e = keep_e.cpu().numpy()
+                    keep_e = mesh_mod.from_rank0(group, keep_e)
+                else:
+                    keep_e = np.ones(len(st["ii_ba"]), bool)
+            if not (keep_e.any() and v.counter > 0):
+                poses, disps = run_pd(poses, disps, wgt_comb, eta_full)
+                continue
+            ii_ds = np.where(keep_e, st["ii_ba"], -1)
+            haskept = torch.zeros(Nbuf, dtype=torch.bool, device=dev)
+            kept = graph._idx(ii_ds[keep_e])
+            with sync("mask_write"):
+                haskept[kept] = True
+            eta_ds = torch.where(haskept[:, None, None], eta_val,
+                                 torch.full_like(eta_val, 1e-7))
+            kbase_ds = int(np.clip(ii_ds[keep_e].min(), 0, Nbuf - M_cur))
+            if group is not None:
+                keep_e, ii_ds = keep_e[st["ba_own"]], ii_ds[st["ba_own"]]
+            with sync("keep_upload"):
+                keep_d = torch.as_tensor(keep_e, device=dev)
+            wgt_ds = wgt_comb * keep_d[:, None, None, None].to(wgt_comb.dtype)
+            ii_ds_d, jj_ds_d = graph._idx(ii_ds), graph._idx(st["jj_ba_l"])
+            with span("tracker.ba_scale_shift"):
+                disps, dsc, dsh = ba_mod.ba_scale_shift(
+                    poses, disps, intr, tgt_comb, wgt_ds, eta_ds,
+                    v.mono_disps, dsc, dsh, vm, ii_ds_d, jj_ds_d, kbase_ds,
+                    K_max=M_cur, iters=itrs, lm=lm, ep=ep, alpha=0.01,
+                    group=group, bounds=bounds)
+            disps = disps.clamp(min=1e-5)
 
-    ta = torch.tensor([max(t1 - 2, 0)], device=dev)
-    tb = torch.tensor([max(t1 - 1, 0)], device=dev)
+    with sync("kf_pair", 2):
+        ta = torch.tensor([max(t1 - 2, 0)], device=dev)
+        tb = torch.tensor([max(t1 - 1, 0)], device=dev)
     kf_dist = dist_mod.frame_distance_bidirectional(
         poses, disps, intr, ta, tb,
         beta=float(v.cfg["tracking"].get("beta", 0.3)))[0]
@@ -235,7 +261,8 @@ def graph_update_rounds(graph, rounds: int, t0=None, t1=None, itrs=2,
     graph.damping = damping
     graph.net, graph.target, graph.weight = net, target, weight
     graph.age += rounds
-    return float(kf_dist)
+    with sync("kf_dist"):
+        return float(kf_dist)
 
 
 def _gather(group, graph, st, net, target, weight, damping, up):

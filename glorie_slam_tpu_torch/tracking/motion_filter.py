@@ -24,6 +24,7 @@ from ..geom import lie, projective
 from ..nets import droid_net
 from ..ops import corr as corr_mod
 from ..parallel import mesh as mesh_mod
+from ..utils.phase_timer import span, sync
 
 _BF = torch.bfloat16
 
@@ -45,8 +46,9 @@ class MotionFilter:
         self._pending = None
 
     def _image(self, image):
-        return torch.as_tensor(np.asarray(image), dtype=torch.float32,
-                               device=self.video.device)
+        with sync("frame_upload"):
+            return torch.as_tensor(np.asarray(image), dtype=torch.float32,
+                                   device=self.video.device)
 
     def _encode_and_flow(self, image):
         """fnet encode of ``image`` (H, W, 3) + one GRU step against the
@@ -92,12 +94,14 @@ class MotionFilter:
         mono = None
         if (self.mono_predictor is not None and self.predict_every
                 and int(tstamp) % self.predict_every == 0):
-            mono = self.mono_predictor(tstamp, image)
+            with span("tracker.mono_prior"):
+                mono = self.mono_predictor(tstamp, image)
         if self.video.counter == 0:
             self._admit(tstamp, image, intrinsics, gmap, mono, first=True)
             return True
-        if mesh_mod.from_rank0(self.video.group,
-                               float(delta_norm) > self.thresh):
+        with sync("admission"):
+            delta = float(delta_norm)
+        if mesh_mod.from_rank0(self.video.group, delta > self.thresh):
             self.count = 0
             self._admit(tstamp, image, intrinsics, gmap, mono)
             return True
@@ -106,7 +110,8 @@ class MotionFilter:
 
     def _admit(self, tstamp, image, intrinsics, gmap, mono, first=False):
         if mono is None and self.mono_predictor is not None:
-            mono = self.mono_predictor(tstamp, image)
+            with span("tracker.mono_prior"):
+                mono = self.mono_predictor(tstamp, image)
         intr8 = np.asarray(intrinsics, np.float32) / self.video.down_scale
         v = self.video
         if first:

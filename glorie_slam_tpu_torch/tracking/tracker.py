@@ -11,7 +11,7 @@ calls ``checkpoint_cb(next_frame)`` (``SLAM`` saves its state there), and
 ``run(stream, start=)`` resumes from a checkpoint's next frame.
 """
 
-from ..utils.phase_timer import PhaseTimer
+from ..utils.phase_timer import PhaseTimer, traced
 from .backend import Backend
 from .frontend import Frontend
 from .motion_filter import MotionFilter
@@ -60,6 +60,7 @@ class Tracker:
         item = stream[i]
         return item[0], item[1]
 
+    @traced("tracker.step")
     def step(self, i, stream):
         """Track stream frame ``i``: motion filter, prefetch of frame
         i + 1, frontend, online BA every ``ba_freq`` keyframes, and the
