@@ -6,18 +6,20 @@ NVIDIA GPU (written for an H100).
 
 Phases, each printing its wall seconds:
 
-1. build: the CUDA kernels (one nvcc per source, started together, then
-   linked), then the host proximity library, into
-   glorie_slam_tpu_torch/_build;
-2. kernels: each of the five kernels against its plain PyTorch version on
-   the card, at the shapes its path gives it (the 40x80 grid of a 320x640
-   frame, 128 channels, 96 edges), with timings (CUDA events), bounds and
+1. build: the tracking kernels (one nvcc per source, started together,
+   then linked), the mapper's kNN kernel (its own library), then the host
+   proximity library, into glorie_slam_tpu_torch/_build;
+2. kernels: each of the six kernels against its plain PyTorch version on
+   the card, at the shapes its path gives it (A-E: the 40x80 grid of a
+   320x640 frame, 128 channels, 96 edges; F, the kNN: a mapper train
+   step's two calls, ``knn_room``), with timings (CUDA events), bounds and
    a library formulation's time; for kernel A also the mean box size of
    its pixel tiles per level (``cuda_corr.tile_box_stats``); for D and E
    also the sector floor (``cuda_corr.plane_sector_stats``), a
    ``grid_sample`` time, E without and with its range check on the card,
    both on smooth flow, and D at its callers' shapes (``CorrBlock``
-   levels 1-3, an ``alt_corr_chunk`` tile);
+   levels 1-3, an ``alt_corr_chunk`` tile); for F the rows that differ
+   from the plain version (it raises unless none) and its launches a step;
 3. volume: the correlation-volume path (``CorrBlock`` through kernel E,
    run under ``torch.cuda.set_sync_debug_mode("error")`` to show that it
    makes no device sync; ``lookup_pyramid`` without slots and
@@ -72,8 +74,9 @@ Phases, each printing its wall seconds:
    share (CUDA events on the worker's stream); then anchors and points,
    ``final_refine`` seconds, peak memory, the first and last losses; the
    geo loss must fall over the first mapped keyframe, and ``final_refine``
-   must run its optimisation. Kernels A and B launch again in its tracking.
-   ``terminate`` then runs the evaluations, each in its phase: the
+   must run its optimisation. Kernels A and B launch again in its tracking,
+   F (the kNN) in its mapping: the kernels line's F launches are this
+   run's. ``terminate`` then runs the evaluations, each in its phase: the
    keyframe and full-trajectory render metrics, the TSDF mesh and, against
    a ground-truth PLY of the synthetic plane (``write_plane_mesh``), the
    reconstruction metrics; the phase prints the three metrics files, the
@@ -108,9 +111,9 @@ Phases, each printing its wall seconds:
     mapper (map-light, every ``ENDURANCE_EVERY_KF``-th keyframe) over
     ``ENDURANCE_MAPPED_FRAMES``, the launch counts zeroed before each run
     and read after: the KF/s series per 20 frames with each phase's
-    seconds, peak memory, the A and B launches, the mapper's overlap stats
-    and each handshake's snapshot bytes and clone time (CUDA events on the
-    tracker's stream);
+    seconds, peak memory, every kernel's launches, the mapper's overlap
+    stats and each handshake's snapshot bytes and clone time (CUDA events
+    on the tracker's stream);
 13. mapper schedule (``mapper_schedule_phase``):
     ``tools/mapper_schedule_run.schedule_run`` at Replica's 400 / 300 / 150
     iterations on 10 oracle frames, with ``--light``'s 300 / 500 pixels and
@@ -135,13 +138,14 @@ Phases, each printing its wall seconds:
     comparisons run under deterministic algorithms: on the card
     ``index_add_`` otherwise sums in atomic order. With the batch-invariant
     net and in ``dense_ba`` they are bitwise. Per rank: the seconds, the A
-    and B launches (zeroed in each rank before each run) and the bytes
-    received.
+    and B launches (every kernel's zeroed in each rank before each run and
+    summed for the kernels line) and the bytes received.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (each
-kernel's ``launches`` on its main path, and ``launches_by_path``: the
-pipeline, volume, both endurance runs and the 2-rank sharded runs (the
-rounds, ``dense_ba`` and the whole run), summed over their ranks), and
+kernel's ``launches`` on its main path (F's: the mapping phase's), and
+``launches_by_path``: the pipeline, volume, both endurance runs, the
+mapping phase and the 2-rank sharded runs (the rounds, ``dense_ba`` and
+the whole run), summed over their ranks), and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero without that line. Needs no network; uses one card.
 """
@@ -220,6 +224,7 @@ def cuda_ms(fn, iters, warmup=2):
 def build_all():
     from glorie_slam_tpu_torch import build
     build.kernels_library()
+    build.knn_library()
     build.proximity_library()
 
 
@@ -592,6 +597,89 @@ def measure_plane(kernel, store, slots, coords, label):
     return res
 
 
+# the mapper train step's two kNN calls: ``sample_near_cloud``'s 25 probes
+# and the render's 10 samples on each of the 8192 rays, against the
+# ``replica-map`` window's ~35,600 points, some of them exact copies
+KNN_RAYS, KNN_PROBES, KNN_SAMPLES = 8192, 25, 10
+KNN_POINTS, KNN_COPIES = 35_600, 1_800
+KNN_CAPACITY = 1 << 20
+KNN_INSTR_PER_PAIR = 6      # 3 for the cross term, q2 + p2, the FMA, a compare
+
+
+def knn_room(dev, seed=0):
+    """kernel F's inputs at the train step's shapes: the five faces of a
+    6 x 4 x 3 m room holding ``KNN_POINTS`` points (1 cm noise; the last
+    ``KNN_COPIES`` exact copies of the first) in a ``KNN_CAPACITY``-slot
+    cloud, and rays from inside it: ``KNN_PROBES`` probes a ray from 0.12
+    to 1.2 times the depth of the face it meets, and ``KNN_SAMPLES``
+    samples within 5% of that depth."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    n = KNN_POINTS - KNN_COPIES
+    size = torch.tensor([6.0, 4.0, 3.0])
+    p = torch.rand((n, 3), generator=g) * size
+    face = torch.randint(0, 5, (n,), generator=g)
+    for f, axis, at in ((0, 2, 0.0), (1, 0, 0.0), (2, 0, 6.0), (3, 1, 0.0),
+                        (4, 1, 4.0)):
+        p[face == f, axis] = at
+    pts = torch.full((KNN_CAPACITY, 3), 0.001)
+    pts[:n] = p + 0.01 * torch.randn((n, 3), generator=g)
+    pts[n:KNN_POINTS] = pts[:KNN_COPIES]
+    o = torch.tensor([3.0, 2.0, 1.5])
+    d = torch.randn((KNN_RAYS, 3), generator=g)
+    d[:, 2] = -d[:, 2].abs()
+    d = d / d.norm(dim=1, keepdim=True)
+    far = (torch.where(d > 0, size, torch.zeros(3)) - o) / d
+    depth = far.nan_to_num(nan=1e9, posinf=1e9).clamp(min=0).min(1).values
+    z_probe = 1.2 * depth[:, None] * torch.linspace(0.1, 1.0, KNN_PROBES)
+    z_surf = depth[:, None] * torch.linspace(0.95, 1.05, KNN_SAMPLES)
+    queries = [(o + d[:, None] * z[..., None]).reshape(-1, 3).to(dev)
+               for z in (z_probe, z_surf)]
+    return pts.to(dev), queries
+
+
+def check_kernel_f(dev):
+    """Kernel F (``knn.knn_search`` on the card) against its plain version
+    at the train step's shapes (``knn_room``): every row's neighbours and
+    distances equal, or it raises; both calls' ms (a step's), the plain
+    version's, the bound (pairs x ``KNN_INSTR_PER_PAIR`` FP32 instructions
+    at the published FP32 rate, one instruction a lane and clock), and the
+    launches a step."""
+    from glorie_slam_tpu_torch.ops import knn
+    pts, queries = knn_room(dev)
+    n_scan, _ = knn.scan_slots(pts.shape[0], KNN_POINTS)
+    rows, err = 0, 0.0
+    for q in queries:
+        D, I = knn.knn_search(q, pts, KNN_POINTS)
+        Dp, Ip = knn.knn_plain(q, pts, KNN_POINTS, knn.NN_NUM, n_scan)
+        rows += int(((D != Dp) | (I != Ip)).any(1).sum())
+        err = max(err, float((D - Dp).abs().max()))
+    if rows:
+        raise AssertionError(f"kernel F: {rows} rows differ from its plain "
+                             "version")
+
+    def step():
+        for q in queries:
+            knn.knn_search(q, pts, KNN_POINTS)
+
+    before = knn.KNN.launches
+    ms = cuda_ms(step, 10)
+    launches = (knn.KNN.launches - before) / 12
+    plain_ms = cuda_ms(lambda: [knn.knn_plain(q, pts, KNN_POINTS, knn.NN_NUM,
+                                              n_scan) for q in queries], 2,
+                       warmup=1)
+    pairs = sum(q.shape[0] for q in queries) * KNN_POINTS
+    return dict(name=knn.KNN.name, route="cuda", source=knn.KNN.source,
+                replaces=knn.KNN.replaces, max_abs_err=err, rows_differ=rows,
+                ms=ms, plain_ms=plain_ms,
+                bound_ms=1e3 * pairs * KNN_INSTR_PER_PAIR / (FP32_FLOPS / 2),
+                bound_by="operations", library_ms=None,
+                launches_per_step=launches,
+                shapes={"queries": [q.shape[0] for q in queries],
+                        "points": KNN_POINTS, "copies": KNN_COPIES,
+                        "k": knn.NN_NUM})
+
+
 def brief(r):
     """A D/E entry's numbers without the kernel's names."""
     return {k: r[k] for k in (
@@ -737,7 +825,7 @@ def volume_check(dev, inputs, alt_edges=64):
     value, so the two are held to two: 0.02 + 0.016|ref|. C's float32
     output against A's bf16: one rounding, 0.01 + 0.008|ref|."""
     import torch
-    from glorie_slam_tpu_torch.ops import corr, cuda_corr
+    from glorie_slam_tpu_torch.ops import corr
 
     fm, iis, jjs, coords = inputs
     N, h0, w0, C = fm.shape
@@ -751,8 +839,7 @@ def volume_check(dev, inputs, alt_edges=64):
     perm_d = torch.as_tensor(perm, device=dev)
     c4_perm = c4[perm_d]
 
-    for k in cuda_corr.KERNELS:
-        k.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     block = corr.CorrBlock(fcf[iis.long()], fcf[jjs.long()])
     block = block[perm]                       # compact order != slot order
@@ -769,7 +856,7 @@ def volume_check(dev, inputs, alt_edges=64):
                                       jjs, c4)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in cuda_corr.KERNELS}
+    launches = _launches()
 
     errs = {}
     for name, out, want, atol, rtol in (
@@ -1044,14 +1131,13 @@ def pipeline(n_frames, H=320, W=640):
 
         slam.traj_filler = counted_filler
 
-        for k in cuda_corr.KERNELS:
-            k.launches = 0
+        _zero_launches()
         torch.cuda.reset_peak_memory_stats()
         with probe:
             slam.run()
         torch.cuda.synchronize()
         a_ms, a_launches = probe.event_ms()
-        launches = {k.name: k.launches for k in cuda_corr.KERNELS}
+        launches = _launches()
         peak = torch.cuda.max_memory_allocated()
 
         out = slam.output
@@ -1560,7 +1646,7 @@ def mapping_phase(n_frames, H=320, W=640, device="cuda"):
     import numpy as np
     import torch
     from glorie_slam_tpu_torch import build
-    from glorie_slam_tpu_torch.ops import cuda_corr
+    from glorie_slam_tpu_torch.ops import knn
     from glorie_slam_tpu_torch.slam import SLAM
     from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
                                                        bench_cfg, mapping_cfg)
@@ -1585,8 +1671,7 @@ def mapping_phase(n_frames, H=320, W=640, device="cuda"):
         if slam.async_mapper is None or (slam.async_mapper.stream is None
                                          and device == "cuda"):
             raise AssertionError("the mapper is not on its worker stream")
-        for k in cuda_corr.KERNELS:
-            k.launches = 0
+        _zero_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with MapProbe(slam.mapper) as probe:
@@ -1604,7 +1689,7 @@ def mapping_phase(n_frames, H=320, W=640, device="cuda"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        launches = {k.name: k.launches for k in cuda_corr.KERNELS}
+        launches = _launches()
         out = slam.output
         with open(os.path.join(out, "traj", "metrics_kf_traj.txt")) as f:
             kf_traj = dict(line.rstrip("\n").split(": ", 1) for line in f)
@@ -1649,7 +1734,7 @@ def mapping_phase(n_frames, H=320, W=640, device="cuda"):
     feats = mapper.npc.geo_feats[:mapper.npc.count]
     if not bool(torch.isfinite(feats).all()):
         raise AssertionError("non-finite features")
-    for name in ("lookup_pyramid", "depth_agree"):
+    for name in ("lookup_pyramid", "depth_agree", knn.KNN.name):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched while "
                                  "mapping")
@@ -1851,7 +1936,6 @@ def online_prior_run(n_frames=20, H=320, W=640, every_frame=5,
     import torch
     from glorie_slam_tpu_torch import build
     from glorie_slam_tpu_torch import slam as slam_mod
-    from glorie_slam_tpu_torch.ops import cuda_corr
     from glorie_slam_tpu_torch.utils.synthetic import (SyntheticStream,
                                                        bench_cfg)
 
@@ -1898,14 +1982,13 @@ def online_prior_run(n_frames=20, H=320, W=640, every_frame=5,
 
             est.predict, mf.mono_predictor = timed_predict, recorded
             mf._admit = recorded_admit
-            for k in cuda_corr.KERNELS:
-                k.launches = 0
+            _zero_launches()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             slam.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {k.name: k.launches for k in cuda_corr.KERNELS}
+            launches = _launches()
             peak = torch.cuda.max_memory_allocated()
             files = sorted(os.listdir(est.out_dir))
             with open(os.path.join(slam.output, "logs",
@@ -2184,15 +2267,19 @@ ENDURANCE_EVERY_KF = 10
 SUITE_FRAMES = 10
 
 
+def _kernels():
+    """Kernels A-E (the tracking library's) and F (the mapper's kNN)."""
+    from glorie_slam_tpu_torch.ops import cuda_corr, knn
+    return (*cuda_corr.KERNELS, knn.KNN)
+
+
 def _zero_launches():
-    from glorie_slam_tpu_torch.ops import cuda_corr
-    for k in cuda_corr.KERNELS:
+    for k in _kernels():
         k.launches = 0
 
 
 def _launches():
-    from glorie_slam_tpu_torch.ops import cuda_corr
-    return {k.name: k.launches for k in cuda_corr.KERNELS}
+    return {k.name: k.launches for k in _kernels()}
 
 
 def _allocated(device):
@@ -2296,7 +2383,8 @@ def print_endurance(e):
           f"{m['keyframe_fps']:.4f}; peak {m['peak_device_bytes']} bytes "
           f"({m['bytes_held_before']} held by earlier phases); "
           f"launches A {e['mapped_launches']['lookup_pyramid']} B "
-          f"{e['mapped_launches']['depth_agree']}; mapper_overlap "
+          f"{e['mapped_launches']['depth_agree']} F "
+          f"{e['mapped_launches']['knn']}; mapper_overlap "
           f"{json.dumps(m['mapper_overlap'])}", flush=True)
     print(f"[endurance] snapshot per handshake: {s['handshakes']} "
           f"handshakes, bytes mean {s['bytes_mean']:.0f} max "
@@ -2656,12 +2744,13 @@ def sharded_phase(spec=SHARDED, device="cuda", timeout=600):
                 "bytes_received_by_rank": [d["bytes_received"] for d in det],
                 "collectives_by_rank": [d["collectives"] for d in det]}
         report["runs"][n] = entry
-    paths = list(spec["timed"]) + [name for name, (kind, _) in
-                                   spec["checks"].items() if kind == "slam"]
-    report["launches"] = {
-        k: sum(ln[k] for name in paths
-               for ln in report["runs"][2][name]["launches_by_rank"])
-        for k in ("lookup_pyramid", "depth_agree")}
+    # every kernel's launches on 2 ranks, summed over the timed runs and
+    # the whole runs
+    counted = ([o[name]["warm"] for name in spec["timed"] for o in runs[2]]
+               + [o[name]["det"] for name, (kind, _) in spec["checks"].items()
+                  if kind == "slam" for o in runs[2]])
+    report["launches"] = {k: sum(c["launches"][k] for c in counted)
+                          for k in counted[0]["launches"]}
     return report
 
 
@@ -2707,7 +2796,7 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from glorie_slam_tpu_torch.device import set_float32_precision
-    from glorie_slam_tpu_torch.ops import cuda_corr
+    from glorie_slam_tpu_torch.ops import cuda_corr, knn
 
     set_float32_precision()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2724,7 +2813,8 @@ def main():
     t0 = time.perf_counter()
     inputs = edge_inputs(dev)
     results = [check_kernel_a(dev, inputs), check_kernel_b(dev),
-               check_kernel_c(dev, inputs), *check_kernels_de(dev, inputs)]
+               check_kernel_c(dev, inputs), *check_kernels_de(dev, inputs),
+               check_kernel_f(dev)]
     for r in results:
         print("[kernel] " + json.dumps(r), flush=True)
     torch.cuda.empty_cache()
@@ -2869,16 +2959,18 @@ def main():
     phase("sharded", t0)
 
     # A and B launch on the tracking path (the pipeline); C, D and E on
-    # the volume path; each path's own counts beside them
+    # the volume path; F on the mapping path; each path's own counts
+    # beside them
     path_launches = {**pipe["launches"],
                      **{k: vol["launches"][k] for k in (
                          "lookup_level", "lookup_plane",
-                         "lookup_plane_slots")}}
+                         "lookup_plane_slots")},
+                     knn.KNN.name: mapping["launches"][knn.KNN.name]}
     by_path = {"pipeline": pipe["launches"], "volume": vol["launches"],
                "endurance": endurance["launches"],
                "endurance_mapped": endurance["mapped_launches"],
-               "sharded": {k.name: sharded["launches"].get(k.name, 0)
-                           for k in cuda_corr.KERNELS}}
+               "mapping": mapping["launches"],
+               "sharded": sharded["launches"]}
     kernels = []
     for r in results:
         kernels.append({
@@ -2892,11 +2984,15 @@ def main():
         if r["name"] == cuda_corr.LOOKUP_PYRAMID.name:
             kernels[-1]["box"] = r["box"]
             kernels[-1]["pipeline"] = on_pipe
+        if r["name"] == knn.KNN.name:
+            kernels[-1].update({k: r[k] for k in (
+                "rows_differ", "launches_per_step", "shapes")})
         if "sector_floor_ms" in r:                       # D and E
             kernels[-1].update({k: r[k] for k in (
                 "sector_floor_ms", "checked_ms", "grid_sample", "smooth",
                 "corr_block_levels", "alt_corr_tile") if k in r})
-    assert {k.name for k in cuda_corr.KERNELS} == {k["name"] for k in kernels}
+    assert ({k.name for k in (*cuda_corr.KERNELS, knn.KNN)}
+            == {k["name"] for k in kernels})
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

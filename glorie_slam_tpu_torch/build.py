@@ -1,10 +1,12 @@
 """Build native code at first use into ``glorie_slam_tpu_torch/_build/``.
 
-Two libraries, both with a plain C interface loaded through ``ctypes``:
+Three libraries, each with a plain C interface loaded through ``ctypes``:
 
-* ``kernels``: the CUDA kernels in ``csrc/*.cu``. Each source is compiled
-  by its own ``nvcc`` process (all started together) for ``sm_90a``, then
-  the objects are linked into one shared library;
+* ``kernels``: the tracking path's CUDA kernels (``CUDA_SOURCES``). Each
+  source is compiled by its own ``nvcc`` process (all started together)
+  for ``sm_90a``, then the objects are linked into one shared library;
+* ``knn``: the mapper's kNN kernel, ``csrc/knn.cu``, a library of its own,
+  so that the tracking path never builds or loads it;
 * ``proximity``: the host C++ edge proposal in ``native/proximity.cpp``,
   compiled with ``g++``.
 
@@ -25,6 +27,7 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_ROOT = os.path.join(PKG_DIR, "_build")
 CSRC = os.path.join(PKG_DIR, "csrc")
 CUDA_SOURCES = ("lookup_pyramid.cu", "depth_agree.cu", "lookup_plane.cu")
+KNN_SOURCE = "knn.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
@@ -95,6 +98,13 @@ def _build_kernels(tmp):
     return so
 
 
+def _build_knn(tmp):
+    so = os.path.join(tmp, "libknn.so")
+    _run_all([[find_nvcc(), *NVCC_FLAGS, "-shared",
+               os.path.join(CSRC, KNN_SOURCE), "-o", so]])
+    return so
+
+
 def _build_proximity(tmp):
     so = os.path.join(tmp, "libproximity.so")
     src = os.path.join(PKG_DIR, "native", "proximity.cpp")
@@ -114,6 +124,12 @@ def kernels_library():
     """The CUDA kernels' shared library (built on first call)."""
     return _load("kernels", [os.path.join(CSRC, s) for s in CUDA_SOURCES],
                  NVCC_FLAGS, _build_kernels)
+
+
+def knn_library():
+    """The mapper's kNN kernel's shared library (built on first call)."""
+    return _load("knn", [os.path.join(CSRC, KNN_SOURCE)], NVCC_FLAGS,
+                 _build_knn)
 
 
 def proximity_library():

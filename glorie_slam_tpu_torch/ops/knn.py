@@ -26,16 +26,50 @@ the same distance). So ``topk`` only fixes the k-th smallest distance t
 and the points below it; the points at t are then taken lowest index
 first: a running count of the row's points at t, searched for 1..k, gives
 the index of each in turn.
+
+That is the plain version (``knn_plain``), which CPU tensors take. CUDA
+tensors launch kernel F (``csrc/knn.cu``, its own library,
+``build.knn_library``) or raise: one thread a query, the distances by the
+same formula and roundings and a running top-k in registers, with no
+distance matrix. When the queries alone cannot fill the card, the valid
+points are split into ranges and a second pass merges the ranges' lists
+(``point_ranges``). ``KNN.launches`` counts its launches.
 """
+
+import ctypes
+from dataclasses import dataclass
 
 import torch
 
+from .. import build
 from ..utils.phase_timer import count, sync, traced
 
 NN_NUM = 8
 BIG = 1e12
 TILE = 8192
 CHUNK_ELEMS = 1 << 27            # query-by-point distances held at once
+# kernel F's constants, checked against the library's when it loads
+MAX_K = 16                       # largest k instantiated
+STAGE = 256                      # points a shared-memory stage
+# the point split: ranges while the queries give an SM fewer than
+# FILL_THREADS threads, each of at least MIN_RANGE points
+FILL_THREADS = 512
+MIN_RANGE = 2048
+
+
+@dataclass
+class Kernel:
+    """A hand-written kernel: its name, source, the TPU kernel it replaces
+    and its launches (the fields of the tracking kernels' records)."""
+    name: str
+    source: str
+    replaces: str
+    launches: int = 0
+
+
+KNN = Kernel("knn", "glorie_slam_tpu_torch/csrc/knn.cu",
+             "none: the JAX package's kNN (glorie_slam_tpu/ops/knn.py) is "
+             "XLA, with no Pallas kernel")
 
 
 def sq_norm(x):
@@ -47,6 +81,16 @@ def sq_norm(x):
         xc = x[..., c].double()
         acc = (xc * xc + acc.double()).float()
     return acc
+
+
+def scan_slots(P, n_valid, tile=TILE):
+    """(n_scan, tile): the first ``ceil(n_valid / tile)`` tiles (at least
+    one) of a capacity of ``P`` slots, the tile cut to ``P``."""
+    tile = min(tile, P)
+    if P % tile != 0:
+        raise ValueError(f"point capacity {P} must be a multiple of the "
+                         f"tile size {tile}")
+    return min(P, max(1, -(-n_valid // tile)) * tile), tile
 
 
 @traced("knn.search")
@@ -61,14 +105,17 @@ def knn_search(queries, points, n_valid, k: int = NN_NUM, tile: int = TILE):
         raise RuntimeError("knn_search needs float32 matmuls; TF32 is on "
                            "(glorie_slam_tpu_torch.device."
                            "set_float32_precision turns it off)")
-    P = points.shape[0]
-    tile = min(tile, P)
-    if P % tile != 0:
-        raise ValueError(f"point capacity {P} must be a multiple of the "
-                         f"tile size {tile}")
     n_valid = int(n_valid)
-    n_scan = min(P, max(1, -(-n_valid // tile)) * tile)
+    n_scan, tile = scan_slots(points.shape[0], n_valid, tile)
     count("knn.tiles", n_scan // tile)
+    if queries.is_cuda:
+        return _knn_cuda(queries, points, n_valid, k, n_scan)
+    return knn_plain(queries, points, n_valid, k, n_scan)
+
+
+def knn_plain(queries, points, n_valid, k, n_scan):
+    """Plain PyTorch version of ``knn_search`` over the first ``n_scan``
+    slots (a whole number of tiles holding the ``n_valid`` points)."""
     pts = points[:n_scan].float()
     p2 = sq_norm(pts)
     invalid = torch.arange(n_scan, device=pts.device) >= n_valid
@@ -102,6 +149,74 @@ def knn_search(queries, points, n_valid, k: int = NN_NUM, tile: int = TILE):
         return (queries.new_zeros((0, k)),
                 torch.zeros((0, k), dtype=torch.long, device=queries.device))
     return torch.cat(Ds), torch.cat(Is)
+
+
+def _lib():
+    lib = build.knn_library()
+    if not getattr(lib, "_glorie_typed", False):
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.glorie_knn.restype = i32
+        lib.glorie_knn.argtypes = [vp, vp] + [i32] * 6 + [vp] * 5
+        lib.glorie_knn_geometry.restype = None
+        lib.glorie_knn_geometry.argtypes = [ctypes.POINTER(i32)]
+        geometry = (i32 * 2)()
+        lib.glorie_knn_geometry(geometry)
+        if tuple(geometry) != (MAX_K, STAGE):
+            raise RuntimeError(f"knn: MAX_K, STAGE {(MAX_K, STAGE)} differ "
+                               f"from kernel F's {tuple(geometry)}")
+        lib._glorie_typed = True
+    return lib
+
+
+def point_ranges(n_queries, n_points, sms):
+    """(ranges, span): kernel F's split of ``n_points`` valid points for
+    ``n_queries`` queries on a card of ``sms`` SMs. One range while the
+    queries alone give every SM ``FILL_THREADS`` threads; else as many
+    ranges as make up the shortfall, each a whole number of stages and at
+    least ``MIN_RANGE`` points."""
+    want = -(-sms * FILL_THREADS // max(n_queries, 1))
+    ranges = max(1, min(want, n_points // MIN_RANGE))
+    if ranges == 1:
+        return 1, n_points
+    span = -(-n_points // ranges)
+    span = -(-span // STAGE) * STAGE
+    return -(-n_points // span), span
+
+
+def _knn_cuda(queries, points, n_valid, k, n_scan):
+    dev = queries.device
+    if points.device != dev:
+        raise ValueError("knn_search: queries and points on different "
+                         "devices")
+    if queries.dim() != 2 or queries.shape[1] != 3 or points.shape[1] != 3:
+        raise ValueError("knn_search: queries and points must be (n, 3)")
+    if not 1 <= k <= min(MAX_K, n_scan):
+        raise ValueError(f"knn_search: k = {k} outside 1..{MAX_K} or past "
+                         f"the {n_scan} slots scanned")
+    Q = queries.shape[0]
+    D = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    I = torch.empty((Q, k), dtype=torch.long, device=dev)
+    if Q == 0:
+        return D, I
+    q = queries.float().contiguous()
+    pts = points[:n_scan].float()
+    packed = torch.cat([pts, sq_norm(pts)[:, None]], 1)    # (x, y, z, p2)
+    n_pts = min(max(n_valid, 0), n_scan)
+    ranges, span = point_ranges(
+        Q, n_pts, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_d = part_i = None
+    if ranges > 1:
+        part_d = torch.empty((ranges, Q, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((ranges, Q, k), dtype=torch.int32, device=dev)
+    err = _lib().glorie_knn(
+        q.data_ptr(), packed.data_ptr(), Q, n_pts, n_scan, k, ranges, span,
+        None if part_d is None else part_d.data_ptr(),
+        None if part_i is None else part_i.data_ptr(), D.data_ptr(),
+        I.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"knn_search: CUDA error {err}")
+    KNN.launches += 1 if ranges == 1 else 2
+    return D, I
 
 
 def neighbor_count(D, radius):

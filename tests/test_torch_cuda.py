@@ -9,7 +9,9 @@ round to bf16, so they differ by at most ~2 bf16 ulps; kernel B is exact
 except on pixels whose |izd - 1/c| lies within float rounding of thr;
 kernels C, D and E and their plain versions sum float32 products of the
 same bf16 values in another order and do not round their float32 output:
-1e-4 absolute and relative.
+1e-4 absolute and relative. Kernel F (the mapper's kNN) is exact against
+its plain version: the same distances bit for bit, so the same neighbours
+in the same order.
 """
 
 import pytest
@@ -267,8 +269,115 @@ def test_wrappers_raise_on_bad_inputs(dev):
 
 
 # ---------------------------------------------------------------------------
-# the mapper on the card (plain PyTorch: no kernel of its own yet)
+# the mapper on the card: kernel F (the kNN) against its plain version, and
+# the card against the CPU
 # ---------------------------------------------------------------------------
+
+def _cloud(g, cap, count, Q, copies=0):
+    """A padded cloud (cap, 3) of ``count`` points in [1, 3)^3, its last
+    ``copies`` points exact copies of its first, and Q queries in the same
+    box."""
+    pts = torch.full((cap, 3), 0.001)
+    pts[:count] = 1.0 + 2.0 * torch.rand((count, 3), generator=g)
+    if copies:
+        pts[count - copies:count] = pts[:copies]
+    return pts, 1.0 + 2.0 * torch.rand((Q, 3), generator=g)
+
+
+def _kernel_and_plain(dev, q, pts, count, k):
+    """kernel F through ``knn_search`` and the plain version on the card,
+    with the launches and point ranges of the kernel's call."""
+    from glorie_slam_tpu_torch.device import resolve_device
+    from glorie_slam_tpu_torch.ops import knn
+
+    resolve_device("cuda")
+    q, pts = q.to(dev), pts.to(dev)
+    n_scan, _ = knn.scan_slots(pts.shape[0], count)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ranges, _ = knn.point_ranges(q.shape[0], min(count, n_scan), sms)
+    before = knn.KNN.launches
+    D, I = knn.knn_search(q, pts, count, k=k)
+    launches = knn.KNN.launches - before
+    Dp, Ip = knn.knn_plain(q, pts, count, k, n_scan)
+    torch.cuda.synchronize()
+    assert D.shape == Dp.shape == (q.shape[0], k) and I.dtype == torch.long
+    return D, I, Dp, Ip, launches, ranges
+
+
+@pytest.mark.parametrize("k", [4, 8, 9])
+def test_knn_kernel_matches_plain(dev, k):
+    """Enough queries to fill the card in one point range (one launch);
+    20,000 points over three 8192-slot tiles, the last 2,000 copies of the
+    first: distances bitwise (the kernel's FMA chain is the order cuBLAS
+    sums the plain version's product in) and so indices equal everywhere,
+    exact ties between copies included."""
+    g = torch.Generator().manual_seed(k)
+    pts, q = _cloud(g, 3 * 8192, 20000, 150_000, copies=2000)
+    q[:5000] = pts[:5000] + 1e-3 * torch.randn((5000, 3), generator=g)
+    D, I, Dp, Ip, launches, ranges = _kernel_and_plain(dev, q, pts, 20000, k)
+    assert ranges == 1 and launches == 1
+    assert torch.equal(D, Dp)
+    assert torch.equal(I, Ip)
+    tied = (torch.diff(Dp, dim=1) == 0).any(1)
+    assert int(tied.sum()) > 100
+
+
+@pytest.mark.parametrize("Q,count", [(3000, 20000), (257, 40000),
+                                     (7000, 2 * 8192 + 5)])
+def test_knn_kernel_split_matches_plain(dev, Q, count):
+    """Too few queries to fill the card: the points go in ranges and the
+    merge pass joins them (two launches); copies of a point fall in
+    different ranges, and 2 * 8192 + 5 points end in a nearly empty
+    tile."""
+    g = torch.Generator().manual_seed(Q)
+    cap = -(-count // 8192) * 8192
+    pts, q = _cloud(g, cap, count, Q, copies=count // 4)
+    q[:Q // 2] = pts[:Q // 2] + 1e-3 * torch.randn((Q // 2, 3), generator=g)
+    D, I, Dp, Ip, launches, ranges = _kernel_and_plain(dev, q, pts, count, 8)
+    assert ranges > 1 and launches == 2
+    assert torch.equal(D, Dp)
+    assert torch.equal(I, Ip)
+
+
+@pytest.mark.parametrize("count,cap,Q", [
+    (0, 8192, 500), (3, 8192, 500), (8, 8192, 500), (12, 16, 300),
+    (5, 16, 200_000), (0, 16, 200_000)])
+def test_knn_kernel_few_valid_points(dev, count, cap, Q):
+    """n_valid = 0, below k and equal to k; a 16-slot capacity (one
+    16-slot tile); one point range and several: the slots past the valid
+    points read BIG at indices n_valid, n_valid + 1, ..., as the plain
+    version pads."""
+    g = torch.Generator().manual_seed(count + cap)
+    pts, q = _cloud(g, cap, count, Q)
+    D, I, Dp, Ip, launches, _ = _kernel_and_plain(dev, q, pts, count, 8)
+    assert launches >= 1
+    assert torch.equal(D, Dp)
+    assert torch.equal(I, Ip)
+    m = min(count, 8)
+    assert bool((D[:, m:] == 1e12).all()) and bool((D[:, :m] < 1e12).all())
+    pad = torch.arange(count, count + 8 - m, device=dev)
+    assert torch.equal(I[:, m:], pad.expand(Q, -1))
+
+
+def test_knn_kernel_empty_and_refused(dev):
+    """Q = 0 launches nothing; k outside 1..MAX_K, or past the slots
+    scanned, raises."""
+    from glorie_slam_tpu_torch.device import resolve_device
+    from glorie_slam_tpu_torch.ops import knn
+
+    resolve_device("cuda")
+    pts = torch.rand((8192, 3), device=dev)
+    before = knn.KNN.launches
+    D, I = knn.knn_search(torch.empty((0, 3), device=dev), pts, 100)
+    assert D.shape == I.shape == (0, knn.NN_NUM) and I.dtype == torch.long
+    assert knn.KNN.launches == before
+    q = torch.rand((10, 3), device=dev)
+    for k in (0, knn.MAX_K + 1):
+        with pytest.raises(ValueError):
+            knn.knn_search(q, pts, 100, k=k)
+    with pytest.raises(ValueError):
+        knn.knn_search(q, pts[:4], 4, k=8)
+
 
 def test_knn_search_on_the_card_matches_cpu(dev):
     """float32 matmuls (TF32 off, as ``device.resolve_device`` sets it);

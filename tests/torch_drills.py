@@ -7,7 +7,7 @@ host, then moved to the device), so every rank and the one-rank run start
 from bitwise the same state; inside an edge group it runs sharded over the
 group (``tracking.mesh_devices`` = the group's size), else on one device.
 They return host numpy results with, under a group, the rank's launches of
-kernels A and B, the bytes it received from other ranks and its seconds.
+every kernel (A-F), the bytes it received from other ranks and its seconds.
 ``parallel.launch.launch`` starts them by name in each rank; the tests and
 ``chip_smoke.py`` hold the ranks' results against the one-rank run.
 
@@ -42,22 +42,24 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _counters():
-    from glorie_slam_tpu_torch.ops import cuda_corr
+def _kernels():
+    from glorie_slam_tpu_torch.ops import cuda_corr, knn
 
+    return (*cuda_corr.KERNELS, knn.KNN)
+
+
+def _counters():
     g = mesh.active_group()
     if g is not None:
         g.reset_counters()
-    for k in cuda_corr.KERNELS:
+    for k in _kernels():
         k.launches = 0
 
 
 def _report(out, seconds):
-    from glorie_slam_tpu_torch.ops import cuda_corr
-
     g = mesh.active_group()
     out["seconds"] = seconds
-    out["launches"] = {k.name: k.launches for k in cuda_corr.KERNELS}
+    out["launches"] = {k.name: k.launches for k in _kernels()}
     out["bytes_received"] = 0 if g is None else g.bytes_received
     out["collectives"] = 0 if g is None else g.collectives
     out["rank"] = 0 if g is None else g.rank
